@@ -5,7 +5,9 @@ module key for key. Per leaf:
   * linear `w` is stored input-major (in, out) and becomes (out, in);
   * conv `w` is stored HWIO and becomes OIHW;
   * norm `g`/`b` become `weight`/`bias`, embedding `w` becomes `weight`;
-  * free arrays (IP-Adapter's `raw_embed`) copy as they are.
+  * free arrays (IP-Adapter's `raw_embed`, ViT tokens) copy as they are;
+  * weight-only quantized linears (`w_q`/`w_q4` with `scale`/`gscale`)
+    become `QLinear`s holding the same bytes and float32 scales.
 Fused projections a tree may carry are split back first: `to_qkv`
 (q|k|v along the output axis) and `to_kv` (k|v), and `ff_in_a`/`ff_in_g`
 re-join into `ff_in` (value half, then gate half). Loading is strict:
@@ -24,10 +26,15 @@ import torch
 from torch import nn
 
 from .diffusion import ip_adapter as ipa
+from .llm import multimodal as mm_lib
 from .models import clip as clip_lib
+from .models import imagebind as imagebind_lib
 from .models import layers as L
+from .models import llama as llama_lib
 from .models import unet as unet_lib
 from .models import vae as vae_lib
+from .ops import quant as Q
+from .prior import model as prior_lib
 
 
 def unfuse(tree: Any) -> Any:
@@ -75,7 +82,14 @@ def _load(module: nn.Module, tree: dict, path: str, seen: set) -> None:
     for key, val in tree.items():
         name = f"{path}{key}"
         child = getattr(module, key, None)
-        if isinstance(child, nn.Parameter):
+        if isinstance(child, Q.QLinear):
+            _leaf_keys(val, set(child.q), name)
+            for k, buf in child.q.items():
+                arr = np.asarray(val[k])
+                if tuple(arr.shape) != tuple(buf.shape):
+                    raise ValueError(f"{name}.{k}: tree shape {arr.shape} != {tuple(buf.shape)}")
+                buf.copy_(torch.from_numpy(np.array(arr)).to(buf.dtype))
+        elif isinstance(child, nn.Parameter):
             _put(child, val, name, seen)
         elif isinstance(child, nn.Linear):
             _leaf_keys(val, {"w", "b"}, name)
@@ -138,6 +152,83 @@ def image_proj(tree, cfg: ipa.ImageProjConfig, device="cpu", dtype=torch.float32
     return build(_meta(ipa.ImageProj, cfg), tree, device, dtype)
 
 
+def prior(tree, cfg: prior_lib.PriorConfig, device="cpu", dtype=torch.float32) -> prior_lib.Prior:
+    return build(_meta(prior_lib.Prior, cfg), tree, device, dtype)
+
+
+def imagebind(tree, cfg: imagebind_lib.ViTConfig, device="cpu", dtype=torch.float32) -> imagebind_lib.ViT:
+    """The token count, `bias_k`/`bias_v` and the audio stem's LayerNorm
+    follow the tree."""
+    with torch.device("meta"):
+        m = imagebind_lib.ViT(
+            cfg, num_patches=np.shape(tree["pos_embed"])[1] - 1,
+            bias_kv="bias_k" in tree.get("block_0", {}), patch_norm="patch_norm" in tree,
+        )
+    return build(m, tree, device, dtype)
+
+
+_QKEYS = ("w_q", "w_q4")
+
+
+def _qlinear_empty(node: dict, device, dtype) -> Q.QLinear:
+    """A QLinear with buffers shaped like a quantized tree node (int8
+    bytes, float32 scales, the bias in `dtype`), to be filled by `_load`."""
+    bufs = {}
+    for k, v in node.items():
+        dt = torch.int8 if k in _QKEYS else (dtype if k == "b" else torch.float32)
+        bufs[k] = torch.empty(np.shape(v), dtype=dt, device=device)
+    return Q.QLinear(bufs)
+
+
+def _prepare_llama(lm: nn.Module, tree: dict) -> list:
+    """Reshape a meta-built Llama to the tree: fused `qkv`/`gate_up` where
+    the tree has them, and quantized linears taken out (returned as
+    (owner, name, node) to be attached after materializing)."""
+    quantized = []
+    for name, node in tree.items():
+        if not name.startswith("layer_") and name != "lm_head":
+            continue
+        owner = lm if name == "lm_head" else getattr(lm, name)
+        for key, sub in ({name: node} if name == "lm_head" else node).items():
+            if not isinstance(sub, dict) or not ({"w", *_QKEYS} & set(sub)):
+                continue
+            if key in ("qkv", "gate_up"):
+                for part in (("q", "k", "v") if key == "qkv" else ("gate", "up")):
+                    delattr(owner, part)
+                if "w" in sub:
+                    k_in, k_out = np.shape(sub["w"])
+                    with torch.device("meta"):
+                        setattr(owner, key, nn.Linear(k_in, k_out, bias="b" in sub))
+            if "w" not in sub:
+                if hasattr(owner, key):
+                    delattr(owner, key)
+                quantized.append((owner, key, sub))
+    return quantized
+
+
+def _build_llama_like(m: nn.Module, lm: nn.Module, tree: dict, llama_tree: dict, device,
+                      dtype) -> nn.Module:
+    quantized = _prepare_llama(lm, llama_tree)
+    m = L.materialize(m, torch.device(device), dtype)
+    for owner, key, sub in quantized:
+        setattr(owner, key, _qlinear_empty(sub, device, dtype))
+    return load_tree(m, tree).eval().requires_grad_(False)
+
+
+def llama(tree, cfg: llama_lib.LlamaConfig, device="cpu", dtype=torch.float32) -> llama_lib.Llama:
+    """A Llama from the JAX tree: float or quantized linears, unfused or
+    fused (`qkv`, `gate_up`) per layer, as the tree holds them. Quantized
+    linears never exist in float."""
+    m = _meta(llama_lib.Llama, cfg)
+    return _build_llama_like(m, m, tree, tree, device, dtype)
+
+
+def llm(tree, cfg: mm_lib.Any2PixLMConfig, device="cpu", dtype=torch.float32) -> mm_lib.Any2PixLM:
+    """An Any2PixLM from the JAX `llm` tree (the Llama as `llama` does)."""
+    m = _meta(mm_lib.Any2PixLM, cfg)
+    return _build_llama_like(m, m.llama, tree, tree["llama"], device, dtype)
+
+
 def to_numpy(tree: Any) -> Any:
     """Nested dict of arrays (JAX or numpy) → nested dict of numpy arrays."""
     if isinstance(tree, dict):
@@ -145,6 +236,12 @@ def to_numpy(tree: Any) -> Any:
     return np.asarray(tree)
 
 
+PIPELINE_COMPONENTS = (
+    "unet", "refiner", "vae", "text1", "text2", "prior_text", "image_proj", "prior",
+    "imagebind_vision", "imagebind_audio", "llm",
+)
+
+
 def pipeline_params(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The slice's components of a JAX pipeline's `params`, as numpy."""
-    return {n: to_numpy(params[n]) for n in ("unet", "vae", "text1", "text2", "image_proj")}
+    """The port's components of a JAX pipeline's `params`, as numpy."""
+    return {n: to_numpy(params[n]) for n in PIPELINE_COMPONENTS}

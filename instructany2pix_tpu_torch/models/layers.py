@@ -16,23 +16,82 @@ with the JAX package's initializers.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant as Q
 from ..ops.groupnorm import group_norm as _group_norm
 
 # ---------------------------------------------------------------- linear
 
 
-def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """`x @ w + b` (float weights; the quantized forms come with the LLM)."""
+def _use_qmv(p: Q.QLinear, x: torch.Tensor) -> bool:
+    """The JAX package's `_use_pallas_qmv` rule: decode shapes (M <= 16
+    rows) with a lane-aligned output (N % 128 == 0) take K2; prefill and
+    odd widths, such as the 32009-wide vocab head, take the plain product."""
+    m = math.prod(x.shape[:-1]) if x.dim() > 1 else 1
+    return m <= Q.QMV_MAX_M and p.out_features % Q.QMV_TILE_N == 0
+
+
+def linear(
+    p: Union[nn.Linear, Q.QLinear],
+    x: torch.Tensor,
+    norm: Optional[Tuple[torch.Tensor, float]] = None,
+    swiglu: bool = False,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`x @ w + b` for float (`nn.Linear`) or weight-only quantized
+    (`QLinear`) weights. `norm=(g, eps)` (an RMSNorm before the product),
+    `swiglu` (x is the gate|up pair, the product takes silu(gate)·up) and
+    `residual` (added to the output) fuse into K2 when the quantized
+    decode path is taken; every other path composes the same ops, in the
+    same order."""
+    fused = norm is not None or swiglu or residual is not None
+    if isinstance(p, Q.QLinear):
+        q = p.q
+        if _use_qmv(p, x):
+            y = Q.qmatmul(
+                x, q, norm_g=norm[0] if norm is not None else None,
+                norm_eps=norm[1] if norm is not None else 1e-6,
+                swiglu=swiglu, residual=residual,
+            )
+            return y + q["b"].to(x.dtype) if "b" in q else y
+        if fused:
+            y = linear(p, _fused_prologue(x, norm, swiglu))
+            return y + residual if residual is not None else y
+        if "w_q" in q:
+            y = (x @ q["w_q"].to(x.dtype)) * q["scale"].to(x.dtype)
+        else:
+            y = Q.int4_matmul(x, q)
+        return y + q["b"].to(y.dtype) if "b" in q else y
+    if fused:
+        y = linear(p, _fused_prologue(x, norm, swiglu))
+        return y + residual if residual is not None else y
     return F.linear(x.to(p.weight.dtype), p.weight, p.bias)
 
 
+def _fused_prologue(x, norm, swiglu):
+    """Composed form of the linear-fusion prologue, in K2's op order."""
+    if norm is not None:
+        x = rms_norm(norm[0], x, norm[1])
+    if swiglu:
+        k = x.shape[-1] // 2
+        x = silu(x[..., :k]) * x[..., k:]
+    return x
+
+
 # ----------------------------------------------------------------- norms
+
+
+class RMSNorm(nn.Module):
+    """Holds an RMSNorm gain under the JAX tree's name `g`."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.empty(dim))
 
 
 def layer_norm(p: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -137,7 +196,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter with the JAX package's initializers: linear
     N(0,1)/sqrt(in), conv N(0,1)/sqrt(in*k*k), embeddings N(0,1)*0.02,
-    zero biases, unit norm gains. Free parameters (such as IP-Adapter's
+    zero biases, unit norm gains (RMSNorm's too). Free parameters (such as IP-Adapter's
     `raw_embed`) start at zero, as in the JAX init."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
@@ -150,6 +209,8 @@ def init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, RMSNorm):
+            m.g.fill_(1.0)
         else:
             for prm in m.parameters(recurse=False):
                 prm.zero_()
