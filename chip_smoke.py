@@ -36,15 +36,26 @@ printed only when every phase passed):
      1024x1024 images, exact K1 count, seconds per stage, peak memory);
   5. the tiny config in fp32 on the card against the same weights on the
      CPU, with a small int4-grouped LLM: text2img and edit images agree
-     within 1 level, greedy tokens are identical.
+     within 1 level (the edit also with subject consistency through a tiny
+     SAM), greedy tokens are identical.
+After phase 3, K3 (SAM's rel-pos flash attention) against its plain
+version in bf16 at the SAM ViT-H global and window shapes, two ragged
+grids and head_dim 64, on contiguous inputs and on (B, N, H, D) views
+(TOL), timed beside F.scaled_dot_product_attention with the bias as a
+(B, H, N, N) mask (the yardstick); float32 must be refused. Phase 4 then
+adds the full-width subject consistency: `__call__` with
+`subject_strength` through a random SAM ViT-H segmentor in bf16 (K3
+launched exactly 4 times per segmentor call, a non-empty mask, a finite
+1024x1024 image, seconds per stage, peak memory), and the random
+GroundingDINO Swin-T grounder (float32) on the edited image.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. `--out PATH` also writes every reading
 as JSON.
 
 `python3 chip_smoke.py --planted-faults` runs the checks of phases 2 and
-3 against deliberately broken copies of K1 (FAULTS) and K2 (QMV_FAULTS)
-instead, and exits 0 only if the real kernels pass at every shape and
-each broken copy is refused.
+3 and of K3 against deliberately broken copies of K1 (FAULTS), K2
+(QMV_FAULTS) and K3 (K3_FAULTS) instead, and exits 0 only if the real
+kernels pass at every shape and each broken copy is refused.
 """
 
 from __future__ import annotations
@@ -142,6 +153,30 @@ QMV_FAULTS = {
         "the residual is not added",
         "  if (p.residual) y = round_act(y + load_act(p.residual, o, p.act), p.act);\n", ""),
 }
+# K3 vs its plain version: the limit of K1 (TOL, bfloat16); K3 takes bf16 only.
+K3_SHAPES = [
+    # (label, B, H, g, D): N = g^2 tokens
+    ("sam global block", 1, 16, 64, 80),
+    ("sam window block", 25, 16, 14, 80),
+    ("ragged g=40", 2, 16, 40, 80),
+    ("ragged g=9", 3, 4, 9, 80),
+    ("head_dim 64", 1, 12, 64, 64),
+]
+# Deliberately broken copies of K3 that the check must refuse.
+K3_FAULTS = {
+    "bias_indices_swapped": (
+        "bh is read at the key's column and bw at its row",
+        "bh_s[lrow[r] * GP + u] + bw_s[lrow[r] * GP + w];",
+        "bh_s[lrow[r] * GP + w] + bw_s[lrow[r] * GP + u];"),
+    "bias_first_tile_only": (
+        "the bias is added in the first 64-key tile only",
+        "s[j][e] * scale + bh_s[lrow[r] * GP + u] + bw_s[lrow[r] * GP + w];",
+        "s[j][e] * scale + (kt == 0 ? bh_s[lrow[r] * GP + u] + bw_s[lrow[r] * GP + w] : 0.f);"),
+    "bias_rows_unpadded": (
+        "bh is staged with an unpadded row stride and read with the padded one",
+        "bh_s[r * GP + c] = ok ? bh[base + i] : 0.f;", "bh_s[r * G + c] = ok ? bh[base + i] : 0.f;"),
+}
+SUBJECT_STRENGTH = 0.5  # subject inpaint at full width: 25 steps of the 50-step grid
 L2_BYTES = 50 * 2**20
 EDIT_STEPS = 10  # edit inversion and denoise steps at full width (the refiner keeps its 50-step grid)
 
@@ -461,6 +496,109 @@ def phase_qmv(failures, timed=True):
     return rows
 
 
+def k3_bound(b, h, g, d):
+    """Least time for one K3 call: 4·B·H·N²·D operations over the bf16
+    tensor-core peak, or q, k, v, o (bf16) and bh, bw (float32) moved once
+    over 3.35 TB/s."""
+    n = g * g
+    flops = 4.0 * b * h * n * n * d
+    nbytes = 2 * 4 * b * h * n * d + 4 * 2 * b * h * n * g
+    t_ops, t_mem = flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), flops
+
+
+def _k3_inputs(b, h, g, d, seed):
+    import torch
+
+    n = g * g
+    gen = torch.Generator("cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").bfloat16() for _ in range(3))
+    # rel-pos biases of SAM's size: q . R, |R| ~ 1 per dim, over sqrt(d)
+    bh, bw = (torch.randn((b, h, n, g), generator=gen, device="cuda") for _ in range(2))
+    return q, k, v, bh, bw
+
+
+def k3_reference(fa, q, k, v, bh, bw, scale):
+    """The plain version's o and the per-element limit (TOL, bf16)."""
+    import torch
+
+    b, h, n, _ = q.shape
+    g = bh.shape[-1]
+    o_ref = fa._reference_relpos2d(q, k, v, bh, bw, scale)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = (s.view(b, h, n, g, g) + bh[..., :, None] + bw[..., None, :]).view(b, h, n, n)
+    p = torch.softmax(s, dim=-1)
+    del s
+    sigma = torch.matmul(p.square_(), v.float().square()).sqrt_()
+    tol = TOL["bfloat16"]
+    return o_ref, tol["rtol"] * o_ref.float().abs() + tol["stol"] * sigma
+
+
+def phase_k3(failures, timed=True):
+    """K3 against its plain version at every K3_SHAPES entry, in bf16, on
+    (B, H, N, D)-contiguous inputs and on the (B, N, H, D) views SAM passes;
+    float32 must be refused. With `timed`, K3, the plain version and SDPA
+    with the bias as a dense mask, timed with CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rows = []
+    try:
+        for si, (label, b, h, g, d) in enumerate(K3_SHAPES):
+            q, k, v, bh, bw = _k3_inputs(b, h, g, d, 2000 + si)
+            scale = d**-0.5
+            o_ref, limit = k3_reference(fa, q, k, v, bh, bw, scale)
+            views = tuple(bshd_view(x) for x in (q, k, v))
+            readings = []
+            for lq, lk, lv in ((q, k, v), views):
+                o = fa.flash_relpos2d_cuda(lq, lk, lv, bh, bw, scale)
+                diff = (o.float() - o_ref.float()).abs()
+                readings.append({"err": diff.max().item(), "of_limit": (diff / limit).max().item(),
+                                 "ok": bool((diff <= limit).all())})
+            row = {"label": label, "shape": [b, h, g * g, d], "g": g, "dtype": "bfloat16",
+                   "ok": all(r["ok"] for r in readings),
+                   "err_o": max(r["err"] for r in readings),
+                   "of_limit": max(r["of_limit"] for r in readings),
+                   "of_limit_bhsd": readings[0]["of_limit"], "of_limit_bshd": readings[1]["of_limit"]}
+            if not row["ok"]:
+                failures.append(f"K3 {label}: |o| {row['err_o']:.3g} = {row['of_limit']:.3g} of its limit")
+            msg = (f"K3 {label:17s} (B,H,N,D)=({b},{h},{g * g},{d}) g={g:<3d} |o|={row['err_o']:.3g} "
+                   f"(of limit: bhsd {row['of_limit_bhsd']:.3f}, bshd {row['of_limit_bshd']:.3f})")
+            if timed:
+                iters = 20 if g * g >= 1024 else 100
+                row["ms"] = time_ms(lambda: fa.flash_relpos2d_cuda(q, k, v, bh, bw, scale), iters)
+                row["ms_bshd"] = time_ms(lambda: fa.flash_relpos2d_cuda(*views, bh, bw, scale), iters)
+                row["plain_ms"] = time_ms(lambda: fa._reference_relpos2d(q, k, v, bh, bw, scale), iters)
+                n = g * g
+                mask = (bh[..., :, None] + bw[..., None, :]).view(b, h, n, n).bfloat16()
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), iters)
+                del mask
+                row["bound_ms"], row["bound_by"], flops = k3_bound(b, h, g, d)
+                row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+                msg += (f" ms={row['ms']:.4f} (bshd {row['ms_bshd']:.4f}) plain={row['plain_ms']:.4f} "
+                        f"sdpa+mask={row['library_ms']:.4f} bound={row['bound_ms']:.4f} "
+                        f"({row['bound_by']}) {row['tflops']:.1f} TFLOP/s")
+            log(msg + (" ok" if row["ok"] else " FAIL"))
+            rows.append(row)
+            del q, k, v, bh, bw, o_ref, limit, views
+        # K3 takes bf16 only: its wrapper refuses float32 rather than run it
+        x, bias = torch.zeros((1, 2, 64, 80), device="cuda"), torch.zeros((1, 2, 64, 8), device="cuda")
+        try:
+            fa.flash_relpos2d_cuda(x, x, x, bias, bias, 0.1)
+            failures.append("K3: the wrapper took float32 q/k/v")
+        except ValueError as e:
+            log(f"K3 float32: refused by the wrapper ({e})")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _build_faults(src_name, faults):
     """Write and build each broken copy of csrc/<src_name>.cu under
     build/faults; returns {fault: library path}."""
@@ -487,9 +625,9 @@ def _build_faults(src_name, faults):
 
 
 def planted_faults(failures):
-    """Build each FAULTS copy of K1 and QMV_FAULTS copy of K2 (under
-    build/faults), run the phase-2 or phase-3 check with it in place of the
-    kernel, and require that the real kernels pass at every shape while
+    """Build each FAULTS copy of K1, QMV_FAULTS copy of K2 and K3_FAULTS copy
+    of K3 (under build/faults), run the kernel's check with it in place of
+    the kernel, and require that the real kernels pass at every shape while
     each copy is refused at one shape at least."""
     import ctypes
 
@@ -500,6 +638,8 @@ def planted_faults(failures):
         ("flash_fwd", FAULTS, phase_kernels,
          lambda r: f"{r['label']} {r['dtype']}", lambda r: [r["of_limit_bhsd"], r["of_limit_bshd"]]),
         ("qmv", QMV_FAULTS, phase_qmv, lambda r: f"{r['label']} M={r['m']}", lambda r: r["of_limit"]),
+        ("flash_relpos2d", K3_FAULTS, phase_k3, lambda r: r["label"],
+         lambda r: [r["of_limit_bhsd"], r["of_limit_bshd"]]),
     )
     for src_name, faults, check, key, reading in kernels:
         built = _build_faults(src_name, faults)
@@ -535,7 +675,9 @@ def _full_config():
     from instructany2pix_tpu_torch.pipeline import PipelineConfig
 
     ids = initialize_vision_tokenizer(load_tokenizer(None))
-    return dataclasses.replace(PipelineConfig(), llm=Any2PixLMConfig().with_token_ids(ids))
+    # the base UNet inpaints, as with real checkpoints: no second SDXL UNet
+    return dataclasses.replace(PipelineConfig(), llm=Any2PixLMConfig().with_token_ids(ids),
+                               inpaint_unet=PipelineConfig().unet)
 
 
 def _weight_bytes(module):
@@ -629,6 +771,7 @@ def phase_full_width(failures):
             f"(min {samples[0]:.2f}, max {samples[-1]:.2f}); VAE decode "
             f"{out['vae_decode_ms']:.2f} ms; prompt encode {out['prompt_encode_ms']:.2f} ms")
         out["edit"] = phase_edit(pipe, failures, finite)
+        out["subject"] = phase_subject(pipe, failures, finite)
     finally:
         vae_lib.decode = decode
     del pipe
@@ -848,8 +991,141 @@ def phase_edit(pipe, failures, finite):
     return out
 
 
+def phase_subject(pipe, failures, finite):
+    """Subject consistency at full width: `__call__` with `subject_strength`
+    on a seeded LLM cache naming one image subject, through a random SAM
+    ViT-H segmentor in bf16 and the whole-image grounder (so a box exists
+    with random weights), with the launch counts set to 0 just before and
+    read just after; then the random GroundingDINO Swin-T grounder (float32)
+    on the edited image."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.grounding import gdino as gdino_lib
+    from instructany2pix_tpu_torch.grounding import lib as grounding_lib
+    from instructany2pix_tpu_torch.grounding import sam as sam_lib
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+
+    cfg = pipe.cfg
+    out = {}
+    t0 = time.time()
+    gen = torch.Generator("cuda").manual_seed(5)
+    scfg, gcfg = sam_lib.SAMConfig.vit_h(), gdino_lib.GDinoConfig.swint()
+    with torch.device("meta"):
+        sam, gd = sam_lib.SAM(scfg), gdino_lib.GDino(gcfg)
+    sam = sam_lib.init_(L.materialize(sam, torch.device("cuda"), torch.bfloat16), gen).eval()
+    gd = gdino_lib.init_(L.materialize(gd, torch.device("cuda"), torch.float32), gcfg, gen).eval()
+    sam.requires_grad_(False)
+    gd.requires_grad_(False)
+    segment = sam_lib.make_segmentor(sam, scfg)
+    torch.cuda.synchronize()
+    out.update({"build_seconds": time.time() - t0, "sam_gib": _weight_bytes(sam) / 2**30,
+                "gdino_gib": _weight_bytes(gd) / 2**30})
+    masks = []
+
+    def segmentor(image, box):
+        masks.append(segment(image, box))
+        return masks[-1]
+
+    saved = pipe.segmentor, pipe.grounder
+    pipe.segmentor, pipe.grounder = segmentor, grounding_lib.cosine_fallback_grounder(None)
+
+    def blocks(name):
+        return sum(isinstance(m, unet_lib.TBlock) for m in pipe.models[name].modules())
+
+    inpaint_steps = int(50 * SUBJECT_STRENGTH)
+    k1_expected = (EDIT_STEPS * 5 * blocks("unet") + int(50 * 0.5) * 2 * blocks("refiner")
+                   + inpaint_steps * 3 * blocks("unet"))  # the inpaint: CFG with IP tokens
+    with tempfile.TemporaryDirectory() as d:
+        png, _ = _write_media(d)
+        media = [{"type": "image", "fname": png}]
+        rs = np.random.RandomState(8)
+        dd = cfg.llm.image_codec_dim
+        pipe.cache = (rs.randn(1, dd).astype(np.float32), rs.randn(dd).astype(np.float32),
+                      " a cat in an antique shop", png,
+                      dict(all_objs=["cat"], extra_embeds=rs.randn(1, dd).astype(np.float32),
+                           extra_idx=np.array([0])))
+        torch.cuda.reset_peak_memory_stats()
+        pipe.stage_times = {}
+        fa.flash_fwd_cuda.launches = 0
+        fa.flash_relpos2d_cuda.launches = 0
+        Q.qmv_cuda.launches = 0
+        n_decoded = len(finite)
+        t0 = time.time()
+        non_refined, edited, msg = pipe("Put <video> into the picture.", media,
+                                        num_inference_steps=EDIT_STEPS, refinement=0.5, seed=2,
+                                        use_cache=True, subject_strength=SUBJECT_STRENGTH)
+        torch.cuda.synchronize()
+        out["call_seconds"] = time.time() - t0
+        k1, k3 = fa.flash_fwd_cuda.launches, fa.flash_relpos2d_cuda.launches
+        pipe.cache = None
+    out.update({"stage_seconds": dict(pipe.stage_times), "k1_launches": k1,
+                "k1_expected": k1_expected, "k3_launches": k3, "segmentor_calls": len(masks),
+                "k2_launches": Q.qmv_cuda.launches,
+                "mask_fraction": [float(m.mean()) for m in masks],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "inpaint_steps": inpaint_steps, "mean_pixel": float(edited.mean())})
+    pipe.stage_times = None
+    all_finite = len(finite) - n_decoded == 3 and all(finite[n_decoded:])
+    ok = (edited.shape == (cfg.image_size, cfg.image_size, 3) and edited.dtype == np.uint8
+          and all_finite and msg == "SUCCESS!" and len(masks) == 1 and k3 == 4 * len(masks)
+          and k1 == k1_expected and 0 < masks[0].mean() and not np.array_equal(edited, non_refined))
+    if not ok:
+        failures.append(f"subject consistency: image {edited.shape} {edited.dtype}, finite "
+                        f"{all_finite}, msg {msg!r}, segmentor calls {len(masks)}, K3 {k3} "
+                        f"(expected 4 per call), K1 {k1} (expected {k1_expected}), mask fractions "
+                        f"{out['mask_fraction']}")
+    log(f"__call__ with subject consistency (strength {SUBJECT_STRENGTH}: {inpaint_steps} inpaint "
+        f"steps of 50): {out['call_seconds']:.3f} s; " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in out["stage_seconds"].items())
+        + f"; K3 launches {k3} ({len(masks)} segmentor call, expected 4 each); K1 launches {k1} "
+        f"(expected {k1_expected}); mask fraction {out['mask_fraction']}; image {edited.shape} "
+        f"finite {all_finite}; peak {out['peak_gib']:.2f} GiB; SAM ViT-H {out['sam_gib']:.2f} GiB "
+        f"bf16, GroundingDINO {out['gdino_gib']:.2f} GiB f32, built in {out['build_seconds']:.1f} s")
+
+    with torch.inference_mode():
+        x = torch.randn((1, scfg.img_size, scfg.img_size, 3), device="cuda").bfloat16()
+        out["sam_encode_ms"] = time_ms(lambda: sam_lib.encoder_apply(sam.encoder, x, scfg), 3, 1)
+        grounder = gdino_lib.make_grounder(gd, gcfg)
+        grounder(edited, "cat")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        boxes, scores, phrases = grounder(edited, "cat")
+        out["grounder_seconds"] = time.time() - t0
+        xg = gdino_lib.preprocess(edited, device="cuda")
+        ids, _ = gdino_lib.simple_tokenize("cat", gcfg.bert.vocab_size)
+        t0 = time.time()
+        rb, rl = gdino_lib.forward(gd, gcfg, xg, ids, np.ones_like(ids))
+        torch.cuda.synchronize()
+        out["gdino_forward_seconds"] = time.time() - t0
+    shapes_ok = (tuple(rb.shape) == (1, gcfg.num_queries, 4)
+                 and tuple(rl.shape) == (1, gcfg.num_queries, ids.shape[1]))
+    finite_ok = bool(torch.isfinite(rb).all()) and bool(torch.isfinite(rl).all())
+    out.update({"gdino_input": list(xg.shape), "gdino_boxes_shape": list(rb.shape),
+                "gdino_logits_shape": list(rl.shape), "gdino_finite": finite_ok,
+                "grounder_kept": len(boxes), "grounder_phrases": phrases[:5]})
+    if not (shapes_ok and finite_ok and len(boxes) == len(scores) == len(phrases)):
+        failures.append(f"GroundingDINO: boxes {tuple(rb.shape)}, logits {tuple(rl.shape)}, "
+                        f"finite {finite_ok}, kept {len(boxes)}/{len(scores)}/{len(phrases)}")
+    log(f"SAM ViT-H encoder (bf16, 1024^2): {out['sam_encode_ms']:.2f} ms; GroundingDINO Swin-T "
+        f"grounder on the edited image: {out['grounder_seconds']:.3f} s, forward "
+        f"{out['gdino_forward_seconds']:.3f} s on {tuple(xg.shape)}, boxes {tuple(rb.shape)}, logits "
+        f"{tuple(rl.shape)}, finite {finite_ok}, {len(boxes)} boxes kept at 0.35/0.25")
+    pipe.segmentor, pipe.grounder = saved
+    del sam, gd, segment, grounder
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_class(name):
     n = name.lower()
+    if "relpos2d" in n:
+        return "k3"
     if "flash_fwd" in n:
         return "k1"
     if "qmv_" in n:
@@ -934,14 +1210,17 @@ def _tiny_config():
 def phase_tiny_reference(failures):
     """The tiny config in fp32, on the card against the same weights on
     the CPU: text2img and the edit (seeded LLM cache, the same injected
-    noise) within 1 uint8 level; greedy decode (K2 in fp32 on the card)
-    token-identical."""
+    noise), also with subject consistency through a tiny SAM, within 1
+    uint8 level; greedy decode (K2 in fp32 on the card) token-identical."""
+    import copy
     import tempfile
 
     import numpy as np
     import torch
 
     from instructany2pix_tpu_torch.core.dtypes import FP32
+    from instructany2pix_tpu_torch.grounding import sam as sam_lib
+    from instructany2pix_tpu_torch.models import layers as L
     from instructany2pix_tpu_torch.llm import generate as gen_lib
     from instructany2pix_tpu_torch.models import llama as llama_lib
     from instructany2pix_tpu_torch.ops import quant as Q
@@ -987,6 +1266,28 @@ def phase_tiny_reference(failures):
         out["edit_max_levels"] = [levels(imgs[0][0], imgs[1][0], "edit non-refined"),
                                   levels(imgs[0][1], imgs[1][1], "edit refined")]
 
+        # with subject consistency: the same tiny SAM (float32, so the plain
+        # attention on both devices) and the whole-image grounder
+        scfg = sam_lib.SAMConfig.tiny()
+        with torch.device("meta"):
+            sam = sam_lib.SAM(scfg)
+        sam = sam_lib.init_(L.materialize(sam, torch.device("cpu"), torch.float32),
+                            torch.Generator().manual_seed(31))
+        cpu.segmentor = sam_lib.make_segmentor(sam, scfg, dtype=None)
+        gpu.segmentor = sam_lib.make_segmentor(copy.deepcopy(sam).cuda(), scfg, dtype=None)
+        subject_noise = [{k: np.random.RandomState(30 + i).randn(1, h, h, 4).astype(np.float32)
+                          for i, k in enumerate(("vae", "masked_vae", "inpaint"))}]
+        subject_cache = cache[:4] + (dict(all_objs=["cat"], extra_embeds=rs.randn(1, dd).astype(np.float32),
+                                          extra_idx=np.array([0])),)
+        imgs = []
+        for p in (cpu, gpu):
+            p.cache = subject_cache
+            imgs.append(p("edit <video>", [{"type": "image", "fname": png}], num_inference_steps=3,
+                          refinement=0.5, seed=0, use_cache=True, subject_strength=0.7,
+                          subject_noise=subject_noise, **noise))
+        out["subject_edit_max_levels"] = levels(imgs[0][1], imgs[1][1],
+                                                "edit with subject consistency")
+
     # greedy decode: the card's decode steps run K2 in fp32
     with torch.inference_mode():
         aux = torch.zeros((0, cfg.llm.image_codec_dim))
@@ -1027,9 +1328,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--planted-faults", action="store_true",
-                    help="instead of the phases: build broken copies of K1 (FAULTS) and K2 "
-                         "(QMV_FAULTS) and show that the checks refuse each while the real "
-                         "kernels pass")
+                    help="instead of the phases: build broken copies of K1 (FAULTS), K2 "
+                         "(QMV_FAULTS) and K3 (K3_FAULTS) and show that the checks refuse each "
+                         "while the real kernels pass")
     ap.add_argument("--out", help="also write every reading to this JSON file")
     args = ap.parse_args(argv)
 
@@ -1074,17 +1375,21 @@ def main(argv=None) -> int:
     qrows = phase_qmv(failures)
     t_k2 = time.time() - t0
     t0 = time.time()
+    k3rows = phase_k3(failures)
+    t_k3 = time.time() - t0
+    t0 = time.time()
     full = phase_full_width(failures)
     t_full = time.time() - t0
     t0 = time.time()
     tiny = phase_tiny_reference(failures)
-    seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "full_width": t_full,
+    seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "k3_checks": t_k3, "full_width": t_full,
                "tiny": time.time() - t0, "total": time.time() - t_start}
-    edit = full["edit"]
+    edit, subject = full["edit"], full["subject"]
 
     head = next(r for r in rows if r["dtype"] == "bfloat16")
     k1_paths = {"text2img": sum(r["k1_launches"] for r in full["requests"]),
-                "forward_llm": edit["k1_launches"], "edit_call": edit["call_k1_launches"]}
+                "forward_llm": edit["k1_launches"], "edit_call": edit["call_k1_launches"],
+                "subject_call": subject["k1_launches"]}
     k1 = {
         "name": "flash_fwd",
         "route": "cuda",
@@ -1114,7 +1419,8 @@ def main(argv=None) -> int:
                           "benchmarks/qmv_dma_probe.py:32"],
         "launches": edit["k2_launches"],
         "launches_by_path": {"forward_llm": edit["k2_launches"],
-                             "edit_call": edit["call_k2_launches"]},
+                             "edit_call": edit["call_k2_launches"],
+                             "subject_call": subject["k2_launches"]},
         "max_abs_err": max(r["err"] for r in qrows),
         "max_err_of_limit": max(r["of_limit"] for r in qrows),
         "ms": qhead["ms"],
@@ -1127,20 +1433,43 @@ def main(argv=None) -> int:
                                       "library_ms", "bound_ms", "bound_by", "err", "of_limit")}
                    for r in qrows],
     }
+    k3head = next(r for r in k3rows if r["label"] == "sam global block")
+    k3 = {
+        "name": "flash_relpos2d",
+        "route": "cuda",
+        "source": "instructany2pix_tpu_torch/csrc/flash_relpos2d.cu",
+        "replaces": "instructany2pix_tpu/ops/flash_attention.py:174",
+        "launches": subject["k3_launches"],
+        "launches_by_path": {"text2img": 0, "forward_llm": 0, "edit_call": 0,
+                             "subject_call": subject["k3_launches"]},
+        "max_abs_err": max(r["err_o"] for r in k3rows),
+        "max_err_of_limit": max(r["of_limit"] for r in k3rows),
+        "ms": k3head["ms"],
+        "ms_bshd": k3head["ms_bshd"],
+        "plain_ms": k3head["plain_ms"],
+        "bound_ms": k3head["bound_ms"],
+        "bound_by": k3head["bound_by"],
+        "library_ms": k3head["library_ms"],
+        "library_call": "F.scaled_dot_product_attention with the bias as a (B, H, N, N) bf16 mask",
+        "headline_shape": "SAM ViT-H global block (1, 16, 4096, 80), g=64, bf16",
+        "shapes": [{k: r[k] for k in ("label", "shape", "g", "ms", "ms_bshd", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "err_o", "of_limit")} for r in k3rows],
+    }
     result = {"card": card, "k2_shapes": qrows, "full_width": full, "tiny_reference": tiny,
               "seconds": seconds}
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({**result, "kernels": [k1, k2]}, f, indent=1, default=str)
-    summary = {k: v for k, v in full.items() if k not in ("edit", "unet_step_profile")}
+            json.dump({**result, "kernels": [k1, k2, k3]}, f, indent=1, default=str)
+    summary = {k: v for k, v in full.items() if k not in ("edit", "subject", "unet_step_profile")}
     log(json.dumps({"full_width": summary, "tiny_reference": tiny, "seconds": seconds}))
     log(json.dumps({"edit": {k: v for k, v in edit.items() if k != "decode_profile"}}))
+    log(json.dumps({"subject": subject}, default=str))
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
     log(card)
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(json.dumps({"kernels": [k1, k2, k3]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -26,6 +26,10 @@ import torch
 from torch import nn
 
 from .diffusion import ip_adapter as ipa
+from .grounding import bert as bert_lib
+from .grounding import gdino as gdino_lib
+from .grounding import sam as sam_lib
+from .grounding import swin as swin_lib
 from .llm import multimodal as mm_lib
 from .models import clip as clip_lib
 from .models import imagebind as imagebind_lib
@@ -170,6 +174,25 @@ def imagebind(tree, cfg: imagebind_lib.ViTConfig, device="cpu", dtype=torch.floa
 _QKEYS = ("w_q", "w_q4")
 
 
+def sam(tree, cfg: sam_lib.SAMConfig, device="cpu", dtype=torch.float32) -> sam_lib.SAM:
+    """SAM from the JAX `sam` tree (encoder, prompt, decoder); the
+    transposed convs keep the JAX layout."""
+    return build(_meta(sam_lib.SAM, cfg), tree, device, dtype)
+
+
+def swin(tree, cfg: swin_lib.SwinConfig, device="cpu", dtype=torch.float32) -> swin_lib.Swin:
+    return build(_meta(swin_lib.Swin, cfg), tree, device, dtype)
+
+
+def bert(tree, cfg: bert_lib.BertConfig, device="cpu", dtype=torch.float32) -> bert_lib.Bert:
+    return build(_meta(bert_lib.Bert, cfg), tree, device, dtype)
+
+
+def gdino(tree, cfg: gdino_lib.GDinoConfig, device="cpu", dtype=torch.float32) -> gdino_lib.GDino:
+    """GroundingDINO (with its Swin and BERT towers) from the JAX tree."""
+    return build(_meta(gdino_lib.GDino, cfg), tree, device, dtype)
+
+
 def _qlinear_empty(node: dict, device, dtype) -> Q.QLinear:
     """A QLinear with buffers shaped like a quantized tree node (int8
     bytes, float32 scales, the bias in `dtype`), to be filled by `_load`."""
@@ -237,7 +260,7 @@ def to_numpy(tree: Any) -> Any:
 
 
 PIPELINE_COMPONENTS = (
-    "unet", "refiner", "vae", "text1", "text2", "prior_text", "image_proj", "prior",
+    "unet", "refiner", "inpaint_unet", "vae", "text1", "text2", "prior_text", "image_proj", "prior",
     "imagebind_vision", "imagebind_audio", "llm",
 )
 

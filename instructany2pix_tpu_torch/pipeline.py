@@ -1,5 +1,5 @@
-"""InstructAny2PixPipeline on PyTorch: the instruction-driven edit and
-SDXL text2img.
+"""InstructAny2PixPipeline on PyTorch: the instruction-driven edit, with
+subject consistency, and SDXL text2img.
 
 Counterpart of the JAX package's `pipeline.py` for `__call__`,
 `forward_llm` and `text2img`. Components are built on the card unless
@@ -13,14 +13,25 @@ production format. `params` takes the JAX package's parameter trees
 
 Every sampling site draws from one `torch.Generator` seeded with `seed`,
 in a fixed order (LLM sampling, VAE posterior, polar noise, refiner VAE
-posterior, refiner img2img noise), and each takes an injected tensor
-instead (`vae_noise=`, `polar_noise=`, `refiner_vae_noise=`,
-`refiner_noise=`), so a test can feed the JAX draws.
+posterior, refiner img2img noise, then per inpainted subject the VAE
+posteriors of the image and of the masked image and the inpaint start
+noise), and each takes an injected tensor instead (`vae_noise=`,
+`polar_noise=`, `refiner_vae_noise=`, `refiner_noise=`, and
+`subject_noise=[{"vae", "masked_vae", "inpaint"}, ...]`), so a test can
+feed the JAX draws.
+
+Subject consistency (`subject_strength > 0`) grounds each image subject
+with `self.grounder`, masks it with `self.segmentor` and repaints the
+region with the inpaint UNet in IP-Adapter local mode. Both callables come
+from `grounding.lib.build_segmentator` (the checkpoint-free fallbacks);
+callers put a SAM segmentor (`grounding.sam.make_segmentor`) or a
+GroundingDINO grounder (`grounding.gdino.make_grounder`) in their place.
+The inpaint UNet is built when `cfg.inpaint_unet` has 9 input channels;
+otherwise the base UNet serves it (one module, no copy).
 
 Not ported yet, and refused with `NotImplementedError`: speculative
-decode (`llm_speculative_layers > 0`), `diffusion_mode="ipa_lcm"`, the
-`debug=True` attention-map dict and subject consistency
-(`subject_strength > 0`).
+decode (`llm_speculative_layers > 0`), `diffusion_mode="ipa_lcm"` and the
+`debug=True` attention-map dict.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from .diffusion import img2img as i2i
 from .diffusion import ip_adapter as ipa
 from .diffusion import sampler as sampler_lib
 from .diffusion.schedulers import Schedule, SchedulerConfig
+from .grounding import lib as grounding_lib
 from .llm import constants as C
 from .llm import generate as gen_lib
 from .llm import multimodal as mm_lib
@@ -64,6 +76,9 @@ REPLACEMENT_TYPE = C.REPLACEMENT_TYPE
 # inference steps: strength slices this fixed grid, whatever the edit's
 # own step count.
 REFINER_NUM_STEPS = 50
+# Subject inpainting runs on a fixed 50-step grid too, whatever the edit's
+# step count (the JAX pipeline's `_make_inpaint_fn`).
+INPAINT_NUM_STEPS = 50
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +98,10 @@ class PipelineConfig:
     image_size: int = 1024
     embed_norm: float = 20.0
     llm_speculative_layers: int = 0  # > 0 refused until speculative decode is ported
+    # grounding configs for the models a torch-checkpoint loader would
+    # build (None selects Swin-T / ViT-H)
+    gdino: Optional[Any] = None
+    sam: Optional[Any] = None
 
     @staticmethod
     def tiny() -> "PipelineConfig":
@@ -255,6 +274,18 @@ class InstructAny2PixPipeline:
             self.models["llm"] = convert.llm(params["llm"], self.cfg.llm, self.device, dtype)
         else:
             self.models["llm"] = _random_llm(self.cfg.llm, self.device, dtype, gen, llm_quant_bits)
+        # a 9-channel inpaint UNet of its own; else the base UNet inpaints
+        icfg = self.cfg.inpaint_unet
+        if icfg.in_channels == 9:
+            self.models["inpaint_unet"] = (
+                convert.unet(params["inpaint_unet"], icfg, self.device, dtype) if params is not None
+                else _random_module(lambda: unet_lib.UNet(icfg), self.device, dtype, gen))
+        elif icfg != self.cfg.unet:
+            raise ValueError("a 4-channel inpaint_unet config must equal the base UNet's: "
+                             "the base UNet serves inpainting")
+        self.segmentor, self.grounder = grounding_lib.build_segmentator(
+            os.path.join(ckpt, "gdino"), sam_cfg=self.cfg.sam, dino_cfg=self.cfg.gdino,
+            device=self.device)
 
     # ---------------------------------------------------------- helpers
 
@@ -534,10 +565,12 @@ class InstructAny2PixPipeline:
         polar_noise=None,
         refiner_vae_noise=None,
         refiner_noise=None,
+        subject_noise=None,
     ) -> Any:
         """The edit → (non_refined, refined, "SUCCESS!") uint8 images, or
         (None, None, caption) with `llm_only` or when the LLM asked for no
-        image."""
+        image. With `subject_strength > 0` each image subject the LLM named
+        is repainted into the refined image (IP-Adapter local mode)."""
         if diffusion_mode == "ipa_lcm":
             raise NotImplementedError(
                 "diffusion_mode='ipa_lcm' is not ported yet (ROADMAP Queue 1, item 10)")
@@ -545,9 +578,6 @@ class InstructAny2PixPipeline:
             raise NotImplementedError(
                 "debug=True needs the UNet's capture_ip_attn tap, not ported yet "
                 "(ROADMAP Queue 1, item 10)")
-        if subject_strength > 0:
-            raise NotImplementedError(
-                "subject consistency is not ported yet (ROADMAP Queue 1, item 13)")
         c = self.cfg
         seed = seed if seed is not None else int(np.random.randint(0, 2**31))
         gen = torch.Generator(self.device).manual_seed(seed)
@@ -606,9 +636,37 @@ class InstructAny2PixPipeline:
             img = vae_lib.decode(self.models["vae"], lat, c.vae)
             non_refined = image_io.from_model_range(img[0].float().cpu().numpy())
 
-        if refinement <= 0:
-            return non_refined, non_refined, "SUCCESS!"
-        # the SDXL refiner: img2img on its fixed 50-step grid
+        refined = non_refined
+        if refinement > 0:
+            refined = self._refine(caption, non_refined, gen, refinement, refiner_vae_noise,
+                                   refiner_noise)
+
+        if subject_strength > 0 and len(extra_data["extra_idx"]) > 0:
+            subjects = [
+                {"name": k, "embed": v}
+                for k, v, i in zip(extra_data["all_objs"], extra_data["extra_embeds"],
+                                   extra_data["extra_idx"])
+                if mm_data[int(i)]["type"] == "image"
+            ]
+            refined, _ = grounding_lib.subject_consistency(
+                subjects, caption, refined, self._timed("segmentation", self.segmentor),
+                self._timed("grounding", self.grounder),
+                self._make_inpaint_fn(gen, subject_strength, subject_noise), subject_strength,
+                device=self.device,
+            )
+        return non_refined, refined, "SUCCESS!"
+
+    def _timed(self, stage: str, fn):
+        def call(*args, **kwargs):
+            with self._stage(stage):
+                return fn(*args, **kwargs)
+
+        return call
+
+    def _refine(self, caption, non_refined, gen, refinement, refiner_vae_noise, refiner_noise):
+        """The SDXL refiner: img2img on its fixed 50-step grid."""
+        c = self.cfg
+        hl = self._latent_size()
         rprompt = caption + ",high quality,well-formed,award-winning"
         o2 = clip_lib.text_apply(
             self.models["text2"],
@@ -638,8 +696,50 @@ class InstructAny2PixPipeline:
             )
         with self._stage("refiner_vae_decode"):
             rimg = vae_lib.decode(self.models["vae"], rlat, c.vae)
-            refined = image_io.from_model_range(rimg[0].float().cpu().numpy())
-        return non_refined, refined, "SUCCESS!"
+            return image_io.from_model_range(rimg[0].float().cpu().numpy())
+
+    def _make_inpaint_fn(self, gen: torch.Generator, strength: float, subject_noise=None):
+        """inpaint_fn(image, mask, subject_embed, prompt) → uint8 image for
+        `grounding.lib.subject_consistency`: the caption as prompt, an empty
+        negative prompt, guidance 7.5, the subject embedding as IP-Adapter
+        local tokens at scale 0.8, `strength` of the 50-step grid. Each call
+        takes the next dict of `subject_noise` (keys "vae", "masked_vae",
+        "inpaint"), or draws from `gen` in that order."""
+        c = self.cfg
+        hl = self._latent_size()
+        unet = self.models.get("inpaint_unet", self.models["unet"])
+        draws = iter(subject_noise or [])
+
+        def inpaint_fn(image: np.ndarray, mask: np.ndarray, subject_embed, prompt: str):
+            noise = next(draws, {})
+            with self._stage("inpaint_vae_encode"):
+                x = torch.as_tensor(image_io.to_model_range(image)[None], device=self.device)
+                m = torch.as_tensor(np.asarray(mask, np.float32), device=self.device)[None, :, :, None]
+                lat = vae_lib.encode(self.models["vae"], x,
+                                     self._noise(noise.get("vae"), (1, hl, hl, 4), gen), c.vae).float()
+                masked_lat = vae_lib.encode(
+                    self.models["vae"], x * (1.0 - m),
+                    self._noise(noise.get("masked_vae"), (1, hl, hl, 4), gen), c.vae).float()
+            ctx_p, pooled_p = self._encode_sdxl_prompt(prompt)
+            ctx_n, pooled_n = self._encode_sdxl_prompt("")
+            tid = sampler_lib.default_time_ids(c.image_size, c.image_size, 1, self.device)
+            ip_cond, ip_uncond = ipa.get_image_embeds(
+                self.models["image_proj"], c.image_proj,
+                clip_image_embeds_local=self._tensor(subject_embed).reshape(1, -1), mode="local",
+            )
+            with self._stage("inpaint"):
+                out = i2i.inpaint(
+                    unet, c.inpaint_unet, self.schedule, lat, m, masked_lat, ctx_p, ctx_n,
+                    pooled_p, pooled_n, tid, num_inference_steps=INPAINT_NUM_STEPS,
+                    strength=strength, guidance_scale=7.5, ip_tokens=ip_cond,
+                    ip_tokens_uncond=ip_uncond, ip_scale=0.8,
+                    noise=self._noise(noise.get("inpaint"), (1, hl, hl, 4), gen),
+                )
+            with self._stage("inpaint_vae_decode"):
+                img = vae_lib.decode(self.models["vae"], out, c.vae)
+                return image_io.from_model_range(img[0].float().cpu().numpy())
+
+        return inpaint_fn
 
 
 def _resample_linear(data: np.ndarray, sr: int, target_sr: int) -> np.ndarray:

@@ -128,8 +128,7 @@ def test_llm_only_returns_caption(pipes, media):
     tp.cache = None
 
 
-@pytest.mark.parametrize("kw", [{"diffusion_mode": "ipa_lcm"}, {"debug": True},
-                                {"subject_strength": 0.5}])
+@pytest.mark.parametrize("kw", [{"diffusion_mode": "ipa_lcm"}, {"debug": True}])
 def test_unported_options_raise(pipes, media, kw):
     _, tp = pipes
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -186,7 +185,8 @@ def test_edit_config_matches_jax(which):
         jcfg = jpl.dataclasses.replace(jcfg, llm=jpl.mm_lib.Any2PixLMConfig())
         tcfg = tpl.dataclasses.replace(tcfg, llm=tpl.mm_lib.Any2PixLMConfig())
     for name in ("llm", "prior", "prior_text", "imagebind_vision", "imagebind_audio", "refiner",
-                 "embed_norm", "llm_speculative_layers", "image_size"):
+                 "inpaint_unet", "embed_norm", "llm_speculative_layers", "image_size", "sam",
+                 "gdino"):
         a, b = getattr(tcfg, name), getattr(jcfg, name)
         if jpl.dataclasses.is_dataclass(a):
             _same_fields(a, b, name)
