@@ -40,14 +40,17 @@ printed only when every phase passed):
      SAM), greedy tokens are identical.
 After phase 3, K3 (SAM's rel-pos flash attention) against its plain
 version in bf16 at the SAM ViT-H global and window shapes, two ragged
-grids and head_dim 64, on contiguous inputs and on (B, N, H, D) views
-(TOL), timed beside F.scaled_dot_product_attention with the bias as a
-(B, H, N, N) mask (the yardstick); float32 must be refused. Phase 4 then
+grids and head_dim 64, on contiguous inputs, on (B, N, H, D) views and
+on the chunks of a fused qkv projection that SAM passes (TOL), timed
+beside F.scaled_dot_product_attention with the bias as a (B, H, N, N)
+mask (the yardstick); float32 must be refused. Phase 4 then
 adds the full-width subject consistency: `__call__` with
 `subject_strength` through a random SAM ViT-H segmentor in bf16 (K3
 launched exactly 4 times per segmentor call, a non-empty mask, a finite
 1024x1024 image, seconds per stage, peak memory), and the random
-GroundingDINO Swin-T grounder (float32) on the edited image.
+GroundingDINO Swin-T grounder (float32) on the edited image. Every
+main-path run reads the K1, K2 and K3 counters, set to 0 just before it;
+K3 must stay at 0 outside subject consistency.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. `--out PATH` also writes every reading
 as JSON.
@@ -162,19 +165,20 @@ K3_SHAPES = [
     ("ragged g=9", 3, 4, 9, 80),
     ("head_dim 64", 1, 12, 64, 64),
 ]
-# Deliberately broken copies of K3 that the check must refuse.
+# Deliberately broken copies of K3 (its bias policy in csrc/flash_fwd.cu)
+# that the check must refuse.
 K3_FAULTS = {
     "bias_indices_swapped": (
         "bh is read at the key's column and bw at its row",
-        "bh_s[lrow[r] * GP + u] + bw_s[lrow[r] * GP + w];",
-        "bh_s[lrow[r] * GP + w] + bw_s[lrow[r] * GP + u];"),
+        "smem[lrow * gp + c.u] + smem[(kMmaRows + lrow) * gp + c.w];",
+        "smem[lrow * gp + c.w] + smem[(kMmaRows + lrow) * gp + c.u];"),
     "bias_first_tile_only": (
         "the bias is added in the first 64-key tile only",
-        "s[j][e] * scale + bh_s[lrow[r] * GP + u] + bw_s[lrow[r] * GP + w];",
-        "s[j][e] * scale + (kt == 0 ? bh_s[lrow[r] * GP + u] + bw_s[lrow[r] * GP + w] : 0.f);"),
+        "const float logit = bias.add(s[j][e] * scale, bias_s, lrows[r], bc);",
+        "const float logit = kt == 0 ? bias.add(s[j][e] * scale, bias_s, lrows[r], bc) : s[j][e] * scale;"),
     "bias_rows_unpadded": (
         "bh is staged with an unpadded row stride and read with the padded one",
-        "bh_s[r * GP + c] = ok ? bh[base + i] : 0.f;", "bh_s[r * G + c] = ok ? bh[base + i] : 0.f;"),
+        "smem[r * gp + c] = ok ? bh[base + i] : 0.f;", "smem[r * G + c] = ok ? bh[base + i] : 0.f;"),
 }
 SUBJECT_STRENGTH = 0.5  # subject inpaint at full width: 25 steps of the 50-step grid
 L2_BYTES = 50 * 2**20
@@ -534,10 +538,22 @@ def k3_reference(fa, q, k, v, bh, bw, scale):
     return o_ref, tol["rtol"] * o_ref.float().abs() + tol["stol"] * sigma
 
 
+def qkv_views(q, k, v):
+    """The same values with the strides SAM's encoder passes to K3: q, k
+    and v as (B, N, H, D) chunks of one fused (B, N, 3*H*D) projection,
+    viewed as (B, H, N, D) (a token stride of 3*H*D)."""
+    import torch
+
+    b, h, n, d = q.shape
+    qkv = torch.cat([x.transpose(1, 2).reshape(b, n, h * d) for x in (q, k, v)], dim=-1)
+    return tuple(t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+
+
 def phase_k3(failures, timed=True):
     """K3 against its plain version at every K3_SHAPES entry, in bf16, on
-    (B, H, N, D)-contiguous inputs and on the (B, N, H, D) views SAM passes;
-    float32 must be refused. With `timed`, K3, the plain version and SDPA
+    (B, H, N, D)-contiguous inputs, on (B, N, H, D) views and on the
+    chunks of a fused qkv projection that SAM's encoder passes; float32
+    must be refused. With `timed`, K3, the plain version and SDPA
     with the bias as a dense mask, timed with CUDA events."""
     import torch
     import torch.nn.functional as F
@@ -554,7 +570,7 @@ def phase_k3(failures, timed=True):
             o_ref, limit = k3_reference(fa, q, k, v, bh, bw, scale)
             views = tuple(bshd_view(x) for x in (q, k, v))
             readings = []
-            for lq, lk, lv in ((q, k, v), views):
+            for lq, lk, lv in ((q, k, v), views, qkv_views(q, k, v)):
                 o = fa.flash_relpos2d_cuda(lq, lk, lv, bh, bw, scale)
                 diff = (o.float() - o_ref.float()).abs()
                 readings.append({"err": diff.max().item(), "of_limit": (diff / limit).max().item(),
@@ -563,11 +579,13 @@ def phase_k3(failures, timed=True):
                    "ok": all(r["ok"] for r in readings),
                    "err_o": max(r["err"] for r in readings),
                    "of_limit": max(r["of_limit"] for r in readings),
-                   "of_limit_bhsd": readings[0]["of_limit"], "of_limit_bshd": readings[1]["of_limit"]}
+                   "of_limit_bhsd": readings[0]["of_limit"], "of_limit_bshd": readings[1]["of_limit"],
+                   "of_limit_qkv": readings[2]["of_limit"]}
             if not row["ok"]:
                 failures.append(f"K3 {label}: |o| {row['err_o']:.3g} = {row['of_limit']:.3g} of its limit")
             msg = (f"K3 {label:17s} (B,H,N,D)=({b},{h},{g * g},{d}) g={g:<3d} |o|={row['err_o']:.3g} "
-                   f"(of limit: bhsd {row['of_limit_bhsd']:.3f}, bshd {row['of_limit_bshd']:.3f})")
+                   f"(of limit: bhsd {row['of_limit_bhsd']:.3f}, bshd {row['of_limit_bshd']:.3f}, "
+                   f"qkv {row['of_limit_qkv']:.3f})")
             if timed:
                 iters = 20 if g * g >= 1024 else 100
                 row["ms"] = time_ms(lambda: fa.flash_relpos2d_cuda(q, k, v, bh, bw, scale), iters)
@@ -635,17 +653,18 @@ def planted_faults(failures):
 
     result = {"faults": {}}
     kernels = (
-        ("flash_fwd", FAULTS, phase_kernels,
+        ("K1", "flash_fwd", FAULTS, phase_kernels,
          lambda r: f"{r['label']} {r['dtype']}", lambda r: [r["of_limit_bhsd"], r["of_limit_bshd"]]),
-        ("qmv", QMV_FAULTS, phase_qmv, lambda r: f"{r['label']} M={r['m']}", lambda r: r["of_limit"]),
-        ("flash_relpos2d", K3_FAULTS, phase_k3, lambda r: r["label"],
-         lambda r: [r["of_limit_bhsd"], r["of_limit_bshd"]]),
+        ("K2", "qmv", QMV_FAULTS, phase_qmv, lambda r: f"{r['label']} M={r['m']}",
+         lambda r: r["of_limit"]),
+        ("K3", "flash_fwd", K3_FAULTS, phase_k3, lambda r: r["label"],
+         lambda r: [r["of_limit_bhsd"], r["of_limit_bshd"], r["of_limit_qkv"]]),
     )
-    for src_name, faults, check, key, reading in kernels:
+    for kernel, src_name, faults, check, key, reading in kernels:
         built = _build_faults(src_name, faults)
-        log(f"real {src_name}:")
+        log(f"real {kernel} ({src_name}):")
         sound = check(failures, timed=False)
-        result[f"{src_name}_sound_of_limit"] = {key(r): r["of_limit"] for r in sound}
+        result[f"{kernel}_sound_of_limit"] = {key(r): r["of_limit"] for r in sound}
         try:
             for name, so in built.items():
                 log(f"fault {name}: {faults[name][0]}")
@@ -653,7 +672,7 @@ def planted_faults(failures):
                 refused = []
                 rows = check(refused, timed=False)
                 result["faults"][name] = {
-                    "kernel": src_name, "refused": bool(refused),
+                    "kernel": kernel, "source": src_name, "refused": bool(refused),
                     "refused_at": [key(r) for r in rows if not r["ok"]],
                     "of_limit": {key(r): reading(r) for r in rows},
                 }
@@ -692,6 +711,7 @@ def phase_full_width(failures):
     import instructany2pix_tpu_torch.models.vae as vae_lib
     from instructany2pix_tpu_torch.diffusion import sampler as sampler_lib
     from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
     from instructany2pix_tpu_torch.pipeline import InstructAny2PixPipeline
 
     cfg = _full_config()
@@ -726,22 +746,27 @@ def phase_full_width(failures):
     try:
         for name, kw, expected in requests:
             fa.flash_fwd_cuda.launches = 0
+            fa.flash_relpos2d_cuda.launches = 0
+            Q.qmv_cuda.launches = 0
             t0 = time.time()
             img = pipe.text2img("a photo of a cat in an antique shop", num_inference_steps=STEPS,
                                 seed=1, **kw)
             torch.cuda.synchronize()
             dt = time.time() - t0
             launches = fa.flash_fwd_cuda.launches
+            k2, k3 = Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches
             ok = (img.shape == (1024, 1024, 3) and img.dtype == np.uint8 and finite[-1]
-                  and launches == expected)
+                  and launches == expected and k3 == 0)
             if not ok:
                 failures.append(f"request {name}: shape {img.shape} {img.dtype} finite "
-                                f"{finite[-1]} K1 launches {launches} (expected {expected})")
+                                f"{finite[-1]} K1 launches {launches} (expected {expected}), "
+                                f"K3 launches {k3} (expected 0)")
             out["requests"].append({"name": name, "seconds": dt, "k1_launches": launches,
-                                    "k1_expected": expected, "mean_pixel": float(img.mean())})
+                                    "k1_expected": expected, "k2_launches": k2,
+                                    "k3_launches": k3, "mean_pixel": float(img.mean())})
             log(f"request {name}: {dt:.3f} s, {STEPS} steps, K1 launches {launches} "
-                f"(expected {expected}), image {img.shape} {img.dtype} mean {img.mean():.2f}, "
-                f"finite {finite[-1]}")
+                f"(expected {expected}), K2 {k2}, K3 {k3} (expected 0), image {img.shape} "
+                f"{img.dtype} mean {img.mean():.2f}, finite {finite[-1]}")
         out["text2img_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
 
         # per-step and per-stage times, measured after the counted requests
@@ -850,30 +875,33 @@ def phase_edit(pipe, failures, finite):
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
         fa.flash_fwd_cuda.launches = 0
+        fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
         t0 = time.time()
         res = pipe.forward_llm(inst, media, generator=torch.Generator("cuda").manual_seed(0))
         torch.cuda.synchronize()
         out["forward_llm_seconds"] = time.time() - t0
-        k1, k2 = fa.flash_fwd_cuda.launches, Q.qmv_cuda.launches
+        k1, k2, k3 = fa.flash_fwd_cuda.launches, Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches
         gen = pipe.last_generate
         t_max = gen.tokens.shape[1]
         steps = min(int(gen.done_at[0]), t_max - 1)  # decode steps the loop ran
         k1_expected = cfg.imagebind_vision.layers + cfg.imagebind_audio.layers
         per_step = 4 * cfg.llm.llama.num_layers
         out.update({"k1_launches": k1, "k1_expected": k1_expected, "k2_launches": k2,
-                    "decode_steps": steps, "k2_expected": per_step * steps,
+                    "k3_launches": k3, "decode_steps": steps, "k2_expected": per_step * steps,
                     "stage_seconds": dict(pipe.stage_times), "caption": res[2][:120],
                     "tokens": gen.tokens[0, :steps + 1].tolist(),
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         ok = (isinstance(res, tuple) and len(res) == 5 and isinstance(res[2], str)
-              and k1 == k1_expected and k2 == per_step * steps and steps > 0)
+              and k1 == k1_expected and k2 == per_step * steps and steps > 0 and k3 == 0)
         if not ok:
             failures.append(f"forward_llm: K1 {k1} (expected {k1_expected}), K2 {k2} (expected "
-                            f"{per_step} x {steps} decode steps), result {type(res)}")
+                            f"{per_step} x {steps} decode steps), K3 {k3} (expected 0), "
+                            f"result {type(res)}")
         log(f"forward_llm: {out['forward_llm_seconds']:.3f} s ({', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_times.items())}), "
             f"{steps} decode steps, K2 launches {k2} (expected {per_step * steps}), K1 launches "
-            f"{k1} (expected {k1_expected}: the ImageBind trunks), caption {res[2][:60]!r}")
+            f"{k1} (expected {k1_expected}: the ImageBind trunks), K3 launches {k3} (expected 0), "
+            f"caption {res[2][:60]!r}")
 
         # one <video> row per media item was spliced
         with torch.inference_mode():
@@ -962,6 +990,7 @@ def phase_edit(pipe, failures, finite):
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
         fa.flash_fwd_cuda.launches = 0
+        fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
         n_decoded = len(finite)
         t0 = time.time()
@@ -969,9 +998,10 @@ def phase_edit(pipe, failures, finite):
                                          refinement=0.5, seed=1, use_cache=True)
         torch.cuda.synchronize()
         out["call_seconds"] = time.time() - t0
-        k1 = fa.flash_fwd_cuda.launches
+        k1, k3 = fa.flash_fwd_cuda.launches, fa.flash_relpos2d_cuda.launches
         out.update({"call_stage_seconds": dict(pipe.stage_times), "call_k1_launches": k1,
                     "call_k1_expected": expected, "call_k2_launches": Q.qmv_cuda.launches,
+                    "call_k3_launches": k3,
                     "call_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "mean_pixels": [float(non_refined.mean()), float(refined.mean())]})
         pipe.stage_times = None
@@ -979,13 +1009,13 @@ def phase_edit(pipe, failures, finite):
         images_ok = all(a.shape == (size, size, 3) and a.dtype == np.uint8
                         for a in (non_refined, refined))
         all_finite = len(finite) - n_decoded == 2 and all(finite[n_decoded:])
-        if not (images_ok and all_finite and msg == "SUCCESS!" and k1 == expected):
+        if not (images_ok and all_finite and msg == "SUCCESS!" and k1 == expected and k3 == 0):
             failures.append(f"__call__: images ok {images_ok}, finite {all_finite}, msg {msg!r}, "
-                            f"K1 {k1} (expected {expected})")
+                            f"K1 {k1} (expected {expected}), K3 {k3} (expected 0)")
         log(f"__call__ (edit, {EDIT_STEPS} inversion + {EDIT_STEPS} denoise steps, refiner "
             f"{ref_steps} of 50): {out['call_seconds']:.3f} s; " + ", ".join(
                 f"{k} {v:.3f} s" for k, v in out["call_stage_seconds"].items())
-            + f"; K1 launches {k1} (expected {expected}); images {non_refined.shape} "
+            + f"; K1 launches {k1} (expected {expected}), K3 {k3} (expected 0); images {non_refined.shape} "
             f"{non_refined.dtype}, finite {all_finite}; peak {out['call_peak_gib']:.2f} GiB")
         pipe.cache = None
     return out
@@ -1418,7 +1448,8 @@ def main(argv=None) -> int:
         "also_replaces": ["instructany2pix_tpu/ops/quant.py:417",
                           "benchmarks/qmv_dma_probe.py:32"],
         "launches": edit["k2_launches"],
-        "launches_by_path": {"forward_llm": edit["k2_launches"],
+        "launches_by_path": {"text2img": sum(r["k2_launches"] for r in full["requests"]),
+                             "forward_llm": edit["k2_launches"],
                              "edit_call": edit["call_k2_launches"],
                              "subject_call": subject["k2_launches"]},
         "max_abs_err": max(r["err"] for r in qrows),
@@ -1437,10 +1468,11 @@ def main(argv=None) -> int:
     k3 = {
         "name": "flash_relpos2d",
         "route": "cuda",
-        "source": "instructany2pix_tpu_torch/csrc/flash_relpos2d.cu",
+        "source": "instructany2pix_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "instructany2pix_tpu/ops/flash_attention.py:174",
         "launches": subject["k3_launches"],
-        "launches_by_path": {"text2img": 0, "forward_llm": 0, "edit_call": 0,
+        "launches_by_path": {"text2img": sum(r["k3_launches"] for r in full["requests"]),
+                             "forward_llm": edit["k3_launches"], "edit_call": edit["call_k3_launches"],
                              "subject_call": subject["k3_launches"]},
         "max_abs_err": max(r["err_o"] for r in k3rows),
         "max_err_of_limit": max(r["of_limit"] for r in k3rows),
@@ -1453,7 +1485,8 @@ def main(argv=None) -> int:
         "library_call": "F.scaled_dot_product_attention with the bias as a (B, H, N, N) bf16 mask",
         "headline_shape": "SAM ViT-H global block (1, 16, 4096, 80), g=64, bf16",
         "shapes": [{k: r[k] for k in ("label", "shape", "g", "ms", "ms_bshd", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by", "err_o", "of_limit")} for r in k3rows],
+                                      "bound_ms", "bound_by", "err_o", "of_limit", "of_limit_qkv")}
+                   for r in k3rows],
     }
     result = {"card": card, "k2_shapes": qrows, "full_width": full, "tiny_reference": tiny,
               "seconds": seconds}

@@ -1,6 +1,7 @@
-// K1: flash-attention forward for NVIDIA Hopper (sm_90a).
+// K1: flash-attention forward for NVIDIA Hopper (sm_90a), and K3, its
+// variant with SAM's decomposed 2-D relative-position bias.
 //
-// Replaces the TPU kernel instructany2pix_tpu/ops/flash_attention.py
+// K1 replaces the TPU kernel instructany2pix_tpu/ops/flash_attention.py
 // `_flash_fwd_kernel` (launched by `_flash_fwd`). Same function:
 //   * attention over (B, H, Sq, D) x (B, H, Sk, D), input-dtype operands,
 //     float32 logits and accumulators, the scale applied to the f32 logits;
@@ -39,6 +40,21 @@
 //     and the exp count per key low.
 // The grid's q-tile index varies fastest so that blocks sharing K/V run
 // together and re-read K/V from L2.
+//
+// K3 (`ia2p_flash_relpos2d`) replaces `_flash_relpos2d_kernel` of the same
+// file: bf16 attention over a g x g token grid (N = g^2) whose float32
+// logit for query t and key u*g + v is (q_t . k) * scale + bh[t, u] +
+// bw[t, v]; no causal mask, no lse. It is the tensor-core kernel below
+// with the `RelPos2dBias` policy: each block stages its 64 rows of bh and
+// bw in dynamic shared memory (32 KB at g = 64, each row padded by one
+// float so the 8 rows a warp reads at once fall in different banks) and
+// each logit reads bh[t, key / g] and bw[t, key % g] by index. The TPU
+// kernel adds bh through a selection matmul instead (Mosaic cannot load
+// one lane) and needs block_k a multiple of g dividing g^2; here key tiles
+// need not align with grid rows and any g <= 256 works. At SAM ViT-H's
+// global blocks ((1,16,4096,80), g = 64) the work is 86 GFLOP against
+// 75 MB, bound by the tensor cores; at its window blocks ((25,16,196,80),
+// g = 14) 4.9 GFLOP against 59 MB, bound by reading the bias tables.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -195,13 +211,64 @@ __global__ void __launch_bounds__(kThreads)
 // A block of 4 warps owns 64 query rows (16 per warp); 64-key tiles of K
 // (row-major) and V (transposed on the way in) sit in padded shared
 // memory so every fragment is one conflict-free 32-bit load. S = Q.K^T
-// stays in registers, is scaled and masked in float32, folded into the
-// running max/sum, converted to the input dtype in place as the A operand
-// of P.V (the JAX kernel's `p.astype(v.dtype)`), and never touches memory.
+// stays in registers, is scaled, biased (the `Bias` policy) and masked in
+// float32, folded into the running max/sum, converted to the input dtype
+// in place as the A operand of P.V (the JAX kernel's `p.astype(v.dtype)`),
+// and never touches memory.
 
 constexpr int kMmaRows = 64;  // query rows per block
 constexpr int kMmaKeys = 64;  // keys per shared tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxGrid = 256;  // K3: g <= 256, so the bias rows fit in shared memory
+
+// What the tensor-core kernel adds to a scaled logit. `stage` fills the
+// block's dynamic shared memory before the key loop (whose first barrier
+// publishes it); `column` is the part of the bias that depends on the key
+// only, taken once per key column; `add` takes the row within the block.
+struct NoBias {  // K1
+  struct Col {};
+  __device__ __forceinline__ void stage(float*, int, int, int) const {}
+  __device__ __forceinline__ Col column(int) const { return {}; }
+  __device__ __forceinline__ float add(float logit, const float*, int, Col) const {
+    return logit;
+  }
+};
+
+struct RelPos2dBias {  // K3
+  struct Col {
+    int u, w;  // the key's row and column in the grid
+  };
+  const float* bh;  // (B, H, N, G) float32, contiguous
+  const float* bw;
+  int N, G;
+
+  static size_t smem_bytes(int G) { return sizeof(float) * 2 * kMmaRows * (G + 1); }
+
+  // this block's rows of bh, then of bw, zero past N
+  __device__ __forceinline__ void stage(float* smem, int bhi, int row0, int tid) const {
+    const int gp = G + 1;
+    const int64_t base = ((int64_t)bhi * N + row0) * G;
+    const int nrows = min(kMmaRows, N - row0);
+    for (int i = tid; i < kMmaRows * G; i += kThreads) {
+      const int r = i / G;
+      const int c = i - r * G;
+      const bool ok = r < nrows;
+      smem[r * gp + c] = ok ? bh[base + i] : 0.f;
+      smem[(kMmaRows + r) * gp + c] = ok ? bw[base + i] : 0.f;
+    }
+  }
+
+  __device__ __forceinline__ Col column(int col) const {
+    const int key = min(col, N - 1);  // a masked tail column reads the last key's bias
+    const int u = key / G;
+    return {u, key - u * G};
+  }
+
+  __device__ __forceinline__ float add(float logit, const float* smem, int lrow, Col c) const {
+    const int gp = G + 1;
+    return logit + smem[lrow * gp + c.u] + smem[(kMmaRows + lrow) * gp + c.w];
+  }
+};
 
 template <typename T>
 struct MmaOps;
@@ -222,12 +289,12 @@ struct MmaOps<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, typename Bias>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
                          float* __restrict__ lse, int H, int Sq, int Sk,
-                         Strides st, float scale, int causal) {
+                         Strides st, float scale, int causal, Bias bias) {
   static_assert(D % 16 == 0 && D <= 128, "mma path takes D = 16..128, step 16");
   constexpr int KS = D + 8;          // padded K row (elements)
   constexpr int VS = kMmaKeys + 8;   // padded transposed-V row (elements)
@@ -236,6 +303,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KQ = D / 16;         // k-steps of Q.K^T
   __shared__ __align__(16) T ks[kMmaKeys * KS];
   __shared__ __align__(16) T vt[D * VS];
+  extern __shared__ __align__(16) float bias_s[];  // the Bias policy's rows
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -245,9 +313,12 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int row0 = blockIdx.x * kMmaRows + warp * 16;
+  const int blk_row0 = blockIdx.x * kMmaRows;
+  const int row0 = blk_row0 + warp * 16;
   const int rows[2] = {row0 + g, row0 + g + 8};
+  const int lrows[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows within the block
   const int offset = Sk - Sq;
+  bias.stage(bias_s, bh, blk_row0, tid);
 
   const T* qp = q + b * st.qb + h * st.qh;
   const T* kp = k + b * st.kb + h * st.kh;
@@ -324,17 +395,22 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // scale and mask in float32; running max per row
+    // scale, bias and mask in float32; running max per row
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kt + j * 8 + 2 * t4 + (e & 1);
-        const int r = e >> 1;
-        const bool valid = col < Sk && (!causal || col <= rows[r] + offset);
-        s[j][e] = valid ? s[j][e] * scale : kNegInf;
-        mx[r] = fmaxf(mx[r], s[j][e]);
+      for (int c = 0; c < 2; ++c) {
+        const int col = kt + j * 8 + 2 * t4 + c;
+        const typename Bias::Col bc = bias.column(col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          const bool valid = col < Sk && (!causal || col <= rows[r] + offset);
+          const float logit = bias.add(s[j][e] * scale, bias_s, lrows[r], bc);
+          s[j][e] = valid ? logit : kNegInf;
+          mx[r] = fmaxf(mx[r], s[j][e]);
+        }
       }
     }
     float alpha[2];
@@ -400,16 +476,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+// `smem` bytes of dynamic shared memory for the bias; the kernel's limit
+// is raised first, since with the static tiles it may pass 48 KB.
+template <typename T, int D, typename Bias = NoBias>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int H, int Sq, int Sk,
                        const Strides& st, float scale, int causal,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const Bias& bias = Bias{}, size_t smem = 0) {
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<T, D, Bias>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((Sq + kMmaRows - 1) / kMmaRows, B * H);
-  flash_fwd_mma_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_mma_kernel<T, D, Bias><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, st, scale,
-      causal);
+      causal, bias);
   return cudaGetLastError();
 }
 
@@ -487,6 +570,33 @@ extern "C" int ia2p_flash_fwd(int dtype, const void* q, const void* k,
     case 1:
       err = dispatch_mma<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, s, &taken);
       return taken ? err : dispatch<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K3. bfloat16 q, k, v, o with head_dim D in {64, 80} and 16-byte aligned
+// rows; float32 bh, bw contiguous (B, H, N, G) with N = G * G. Strides of
+// q, k, v, o are in elements. Returns cudaGetLastError() after the launch
+// (0 on success).
+extern "C" int ia2p_flash_relpos2d(const void* q, const void* k, const void* v,
+                                   const float* bh, const float* bw, void* o, int B, int H,
+                                   int N, int G, int D, int64_t qb, int64_t qh, int64_t qs,
+                                   int64_t kb, int64_t kh, int64_t ks, int64_t vb, int64_t vh,
+                                   int64_t vs, int64_t ob, int64_t oh, int64_t os, float scale,
+                                   void* stream) {
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  if (G < 1 || G > kMaxGrid || N != G * G || !mma_aligned(q, k, v, o, st)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RelPos2dBias bias{bh, bw, N, G};
+  const size_t smem = RelPos2dBias::smem_bytes(G);
+  switch (D) {
+    case 64:
+      return launch_mma<__nv_bfloat16, 64>(q, k, v, o, nullptr, B, H, N, N, st, scale, 0, s, bias, smem);
+    case 80:
+      return launch_mma<__nv_bfloat16, 80>(q, k, v, o, nullptr, B, H, N, N, st, scale, 0, s, bias, smem);
     default:
       return cudaErrorInvalidValue;
   }

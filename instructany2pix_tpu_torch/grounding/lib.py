@@ -105,13 +105,12 @@ def box_fill_segmentor(image: np.ndarray, box_xyxy: np.ndarray) -> np.ndarray:
     return mask
 
 
-def build_segmentator(ckpt_dir: str = "ckpts/gdino", sam_cfg=None, dino_cfg=None, device=None):
+def build_segmentator(ckpt_dir: str = "ckpts/gdino"):
     """(segmentor, grounder) for a checkpoint directory. Without
     `sam_vit_h_4b8939.pth` and `gdino.pth` there: the box-fill segmentor and
     the whole-image grounder. With them: refused, since the port loads the
     JAX package's parameter trees only (`convert.sam`, `convert.gdino`);
-    loading torch checkpoints is ROADMAP Queue 1, item 10. `sam_cfg`,
-    `dino_cfg` and `device` are for the models that such a loader builds."""
+    loading torch checkpoints is ROADMAP Queue 1, item 10."""
     sam_path = os.path.join(ckpt_dir, "sam_vit_h_4b8939.pth")
     dino_path = os.path.join(ckpt_dir, "gdino.pth")
     if os.path.exists(sam_path) and os.path.exists(dino_path):

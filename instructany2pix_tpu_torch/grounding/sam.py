@@ -5,7 +5,7 @@ JAX package's `grounding/sam.py`.
     configured blocks), decomposed relative position bias and a 2-conv
     neck → (B, g, g, out_chans) image embedding. The global blocks of a
     bf16 encoder on the card run K3 (`ops/flash_attention.py::
-    flash_attention_relpos2d`, `csrc/flash_relpos2d.cu`); every other
+    flash_attention_relpos2d`, `csrc/flash_fwd.cu`); every other
     attention takes the plain math;
   * prompt encoder: random-Fourier positional encoding plus learned corner
     embeddings for boxes;

@@ -6,8 +6,9 @@ kernels and their plain versions.
 hand-written Hopper kernel in `csrc/flash_fwd.cu`; on a CPU tensor it runs
 `_reference_attention`, the plain PyTorch version of the same function.
 `flash_attention_relpos2d` is the counterpart of the JAX function of that
-name: `csrc/flash_relpos2d.cu` on a CUDA tensor, `_reference_relpos2d` on
-a CPU tensor. There is no fallback from one to the other: a CUDA call the
+name: K1's tensor-core kernel with a bias policy (`ia2p_flash_relpos2d`
+in `csrc/flash_fwd.cu`) on a CUDA tensor, `_reference_relpos2d` on a CPU
+tensor. There is no fallback from one to the other: a CUDA call the
 kernel does not take raises.
 
 Layout: (B, H, S, D) like the JAX function. Any strides are accepted as
@@ -127,8 +128,8 @@ def flash_attention(
 
 # --------------------------------------------------------------------------
 # K3: attention with SAM's decomposed 2-D relative-position bias over a g x g
-# token grid (`csrc/flash_relpos2d.cu`), forward only. The logit for query t
-# and key u*g + v is q.k*scale + bh[t, u] + bw[t, v].
+# token grid (`ia2p_flash_relpos2d` in `csrc/flash_fwd.cu`), forward only.
+# The logit for query t and key u*g + v is q.k*scale + bh[t, u] + bw[t, v].
 
 RELPOS_HEAD_DIMS = (64, 80)
 RELPOS_MAX_GRID = 256
@@ -177,7 +178,7 @@ def _check_relpos2d(q, k, v, bh, bw):
 def _relpos2d_lib():
     from . import _build
 
-    fn = _build.load("flash_relpos2d").ia2p_flash_relpos2d
+    fn = _build.load("flash_fwd").ia2p_flash_relpos2d
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12

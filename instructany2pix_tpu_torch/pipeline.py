@@ -98,8 +98,9 @@ class PipelineConfig:
     image_size: int = 1024
     embed_norm: float = 20.0
     llm_speculative_layers: int = 0  # > 0 refused until speculative decode is ported
-    # grounding configs for the models a torch-checkpoint loader would
-    # build (None selects Swin-T / ViT-H)
+    # grounding configs, kept equal to the JAX config's fields; nothing reads
+    # them until the torch-checkpoint loader (ROADMAP Queue 1, item 10)
+    # builds the models (None selects Swin-T / ViT-H)
     gdino: Optional[Any] = None
     sam: Optional[Any] = None
 
@@ -283,9 +284,7 @@ class InstructAny2PixPipeline:
         elif icfg != self.cfg.unet:
             raise ValueError("a 4-channel inpaint_unet config must equal the base UNet's: "
                              "the base UNet serves inpainting")
-        self.segmentor, self.grounder = grounding_lib.build_segmentator(
-            os.path.join(ckpt, "gdino"), sam_cfg=self.cfg.sam, dino_cfg=self.cfg.gdino,
-            device=self.device)
+        self.segmentor, self.grounder = grounding_lib.build_segmentator(os.path.join(ckpt, "gdino"))
 
     # ---------------------------------------------------------- helpers
 
