@@ -48,17 +48,33 @@ adds the full-width subject consistency: `__call__` with
 `subject_strength` through a random SAM ViT-H segmentor in bf16 (K3
 launched exactly 4 times per segmentor call, a non-empty mask, a finite
 1024x1024 image, seconds per stage, peak memory), and the random
-GroundingDINO Swin-T grounder (float32) on the edited image. Every
-main-path run reads the K1, K2 and K3 counters, set to 0 just before it;
-K3 must stay at 0 outside subject consistency.
+GroundingDINO Swin-T grounder (float32) on the edited image.
+
+Training (slice 4): after K3, K1 with a per-row key count (`kv_len`)
+against the router's plain masked path, and K4a/K4b (the flash backward)
+against the plain backward at the Llama training shape with and without
+ragged rows, sq != sk, ragged D = 80, the UNet shape, the scalar path and
+float32, on contiguous inputs and (B, S, H, D) views (K4_TOL), each timed
+beside its bound, the plain backward and SDPA's backward. After phase 4
+(its pipeline freed), the trainer at full width: `train.launch.train` on
+Vicuna-7B's widths with 4 of 32 layers, bf16, remat "dots", batch 4 x 2048
+of a synthetic dataset through the port's collate, 5 steps with a preview
+and a checkpoint (finite losses, exact K1/K4a/K4b launches per step, K2 =
+K3 = 0; step time, tokens/s, peak memory, one step profiled). After
+phase 5, the tiny trainer in fp32 on the card against the CPU (3 steps,
+then a falling loss at lr 5e-3, then a save and a resume).
+
+Every main-path run reads the K1, K2, K3, K4a and K4b counters, set to 0
+just before it; K3 must stay at 0 outside subject consistency, K4a and
+K4b outside training.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. `--out PATH` also writes every reading
 as JSON.
 
 `python3 chip_smoke.py --planted-faults` runs the checks of phases 2 and
-3 and of K3 against deliberately broken copies of K1 (FAULTS), K2
-(QMV_FAULTS) and K3 (K3_FAULTS) instead, and exits 0 only if the real
-kernels pass at every shape and each broken copy is refused.
+3, of K3 and of K4 against deliberately broken copies of K1 (FAULTS), K2
+(QMV_FAULTS), K3 (K3_FAULTS) and K4 (K4_FAULTS) instead, and exits 0 only
+if the real kernels pass at every shape and each broken copy is refused.
 """
 
 from __future__ import annotations
@@ -617,6 +633,410 @@ def phase_k3(failures, timed=True):
     return rows
 
 
+# K4a/K4b (the flash backward) vs the plain backward, per element of dq, dk
+# and dv:  |x - x_ref| <= RTOL * |x_ref| + STOL * sigma
+# with dq = sum_j ds_j k_j, dk = sum_i ds_i q_i, dv = sum_i p_i dO_i. Both
+# sides round ds and p to the operand dtype before the products, from
+# float32 values that came out of sums in another order, so a rounded
+# operand may land on the neighbouring bf16 value (2^-8 relative). For ds
+# that step is relative to m = p (|dp| + |delta|) scale, the size of the
+# terms ds is formed from (dp - delta cancels), not to ds itself. sigma is
+# sqrt(sum_j (m_j k_j)^2) for dq, sqrt(sum_i (m_i q_i)^2) for dk and
+# sqrt(sum_i (p_i dO_i)^2) for dv: the scale of the noise those steps put
+# into the sums, whose standard deviation stays under 2^-8 sigma; 2^-5 sigma
+# is 8 of those, as for K1. Both sides round the output to bf16: together at
+# most one ulp (2^-7 |x|). In fp32 the sides differ only in summation order
+# and the last bits of exp: 2^-15 both, as for K1.
+K4_TOL = {
+    "bfloat16": {"rtol": 2**-7, "stol": 2**-5},
+    "float32": {"rtol": 2**-15, "stol": 2**-15},
+}
+K4_SHAPES = [
+    # (label, (B, H, Sq, D), Sk, causal, kv_len per row or None, dtype)
+    ("llama train", (4, 32, 2048, 128), 2048, True, None, "bfloat16"),
+    ("llama train ragged", (4, 32, 2048, 128), 2048, True, (2048, 1900, 1537, 1000), "bfloat16"),
+    ("non-causal sq!=sk", (2, 8, 333, 128), 517, False, None, "bfloat16"),
+    ("causal sq<sk", (1, 32, 64, 128), 600, True, None, "bfloat16"),
+    ("ragged d=80", (2, 16, 1000, 80), 1000, True, (1000, 613), "bfloat16"),
+    ("unet self 64x64", (2, 10, 4096, 64), 4096, False, None, "bfloat16"),
+    ("head_dim 72 (fma path)", (1, 4, 300, 72), 200, False, None, "bfloat16"),
+    ("float32 ragged", (2, 4, 300, 64), 300, True, (300, 123), "float32"),
+]
+# K1 with kv_len vs the plain masked path the router took before (TOL)
+K1_KV_SHAPES = [
+    ("llama train ragged", (4, 32, 2048, 128), 2048, True, (2048, 1900, 1537, 1000), "bfloat16"),
+    ("ragged d=80", (2, 16, 1000, 80), 1000, True, (1000, 613), "bfloat16"),
+    ("float32 ragged", (2, 4, 300, 64), 300, True, (300, 123), "float32"),
+]
+# The autograd Function through the router (K1 forward, delta, K4a and K4b
+# backward) against the plain backward on its own output (K4_TOL)
+FN_SHAPES = [
+    # (label, (B, S, H, D) as the Llama passes it, kv_len per row, dtype)
+    ("llama train ragged", (4, 2048, 32, 128), (2048, 1900, 1537, 1000), "bfloat16"),
+    ("ragged d=80", (2, 1000, 16, 80), (1000, 613), "bfloat16"),
+    ("float32 ragged", (2, 300, 4, 64), (300, 123), "float32"),
+]
+# Deliberately broken copies of K4 (csrc/flash_bwd.cu) that the check must refuse.
+K4_FAULTS = {
+    "delta_dropped": (
+        "K4a: ds = p * dp * scale, without delta",
+        "s[j][e] = p * (dp[j][e] - delta_r[r]) * a.scale;", "s[j][e] = p * dp[j][e] * a.scale;"),
+    "causal_start_late": (
+        "K4b: the causal query loop starts one tile late",
+        "if (a.causal) qt0 = (max(key0 - offset, 0) / kTile) * kTile;",
+        "if (a.causal) qt0 = (max(key0 - offset, 0) / kTile + 1) * kTile;"),
+    "ds_scale_missing": (
+        "K4b: ds = p * (dp - delta), without the scale",
+        "dp[j][e] = p * (dp[j][e] - dl) * a.scale;", "dp[j][e] = p * (dp[j][e] - dl);"),
+    "kv_len_ignored": (
+        "K4a and K4b: every row sees all Sk keys (kv_len is not passed on to the kernels)",
+        "  a.kv_len = kv_len;\n", "  a.kv_len = nullptr;\n"),
+}
+
+
+def reset_k4(fa):
+    fa.flash_bwd_dq_cuda.launches = 0
+    fa.flash_bwd_dkv_cuda.launches = 0
+
+
+def no_k4(fa, failures, path):
+    """K4a and K4b launches of an inference path (set to 0 just before it),
+    which must be 0: nothing there needs a gradient."""
+    a, b = fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches
+    if a or b:
+        failures.append(f"{path}: K4a {a} and K4b {b} launches (expected 0)")
+    return {"k4a_launches": a, "k4b_launches": b}
+
+
+def _kv_tensor(kv):
+    import torch
+
+    return None if kv is None else torch.tensor(kv, dtype=torch.int32, device="cuda")
+
+
+def visible_pairs(b, h, sq, sk, causal, kv):
+    """(query, key) pairs the masks leave visible: the work a kernel with
+    exact masking must do for these inputs."""
+    import numpy as np
+
+    rows = np.arange(sq)
+    total = 0
+    for bi in range(b):
+        lim = sk if kv is None else min(sk, kv[bi])
+        vis = np.minimum(lim, rows + (sk - sq) + 1) if causal else np.full(sq, lim)
+        total += int(np.clip(vis, 0, None).sum())
+    return h * total
+
+
+def k4_bound(shape, sk, causal, kv, dtype_name):
+    """Least time of K4a and of K4b: K4a does 3 products of 2 D flops per
+    visible pair (q.k, dO.v, ds.k), K4b 4 (q.k, dO.v, p^T.dO, ds^T.q), over
+    the peak for the dtype; bytes: q, k, v, dO read once, lse and delta
+    read, dq (K4a) or dk and dv (K4b) written, over 3.35 TB/s."""
+    b, h, sq, d = shape
+    pairs = visible_pairs(b, h, sq, sk, causal, kv)
+    elem = 2 if dtype_name == "bfloat16" else 4
+    out = {}
+    for name, products, nbytes in (
+            ("dq", 3, elem * b * h * d * (3 * sq + 2 * sk) + 8 * b * h * sq),
+            ("dkv", 4, elem * b * h * d * (2 * sq + 4 * sk) + 8 * b * h * sq)):
+        flops = 2.0 * products * d * pairs
+        t_ops, t_mem = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes", flops)
+    return out
+
+
+def k4_sigmas(fa, q, k, v, g, lse, delta, causal, scale, kv_len):
+    """sigma for dq, dk and dv (see K4_TOL), from the float32 p and dp."""
+    import torch
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    vis = fa._visible(q.shape[2], k.shape[2], causal, kv_len, q.device)
+    p = s.sub_(lse[..., None]).exp_().masked_fill_(~vis, 0.0)
+    del s
+    m = torch.matmul(g.float(), v.float().transpose(-1, -2)).abs_()
+    m.add_(delta.abs()[..., None]).mul_(p).mul_(scale).square_()
+    sig_dq = torch.matmul(m, k.float().square()).sqrt_()
+    sig_dk = torch.matmul(m.transpose(-1, -2), q.float().square()).sqrt_()
+    del m
+    sig_dv = torch.matmul(p.square_().transpose(-1, -2), g.float().square()).sqrt_()
+    return sig_dq, sig_dk, sig_dv
+
+
+def _reading(x, ref, sigma, tol):
+    """Max |x - x_ref|, the largest share of its limit and whether every
+    element is within it (NaN fails; where the limit is 0 only 0 passes)."""
+    import torch
+
+    ref = ref.float()
+    diff = (x.float() - ref).abs()
+    limit = tol["rtol"] * ref.abs() + tol["stol"] * sigma
+    share = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    return {"err": diff.max().item(), "of_limit": share.max().item(),
+            "ok": bool((diff <= limit).all())}
+
+
+def _k4_row(failures, timed, si, label, shape, sk, causal, kv, dname):
+    import torch
+    import torch.nn.functional as F
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dname)
+    b, h, sq, d = shape
+    gen = torch.Generator("cuda").manual_seed(3000 + si)
+    q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    kv_len = _kv_tensor(kv)
+    scale = d**-0.5
+    o, lse = fa._reference_attention(q, k, v, causal, scale, True, kv_len)
+    delta = fa.flash_delta(g, o)
+    ref = fa.flash_bwd_reference(q, k, v, o, lse, g, causal, scale, kv_len, delta)
+    sigmas = k4_sigmas(fa, q, k, v, g, lse, delta, causal, scale, kv_len)
+    tol = K4_TOL[dname]
+    views = tuple(bshd_view(x) for x in (q, k, v, g))
+    readings = []
+    for lq, lk, lv, lg in ((q, k, v, g), views):
+        dq = fa.flash_bwd_dq_cuda(lq, lk, lv, lg, lse, delta, causal, scale, kv_len)
+        dk, dv = fa.flash_bwd_dkv_cuda(lq, lk, lv, lg, lse, delta, causal, scale, kv_len)
+        readings.append({n: _reading(x, r, sg, tol)
+                         for n, x, r, sg in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, sigmas)})
+        del dq, dk, dv
+    torch.cuda.synchronize()
+    path = "mma" if dname == "bfloat16" and d in (64, 80, 128) else "fma"
+    row = {"label": label, "dtype": dname, "path": path, "shape": list(shape), "sk": sk,
+           "causal": causal, "kv_len": list(kv) if kv else None,
+           "ok": all(r[n]["ok"] for r in readings for n in r)}
+    for n in ("dq", "dk", "dv"):
+        row[f"err_{n}"] = max(r[n]["err"] for r in readings)
+        row[f"of_limit_{n}"] = max(r[n]["of_limit"] for r in readings)
+    row["of_limit"] = max(row[f"of_limit_{n}"] for n in ("dq", "dk", "dv"))
+    row["of_limit_bhsd"] = max(readings[0][n]["of_limit"] for n in readings[0])
+    row["of_limit_bshd"] = max(readings[1][n]["of_limit"] for n in readings[1])
+    row["err"] = max(row[f"err_{n}"] for n in ("dq", "dk", "dv"))
+    if not row["ok"]:
+        failures.append(f"K4 {label} {dname}: " + ", ".join(
+            f"|{n}| {row['err_' + n]:.3g} = {row['of_limit_' + n]:.3g} of its limit"
+            for n in ("dq", "dk", "dv")))
+    msg = (f"K4 {label:22s} {dname:8s} {path} {str(shape):18s} sk={sk:<5d} causal={int(causal)} "
+           f"kv_len={kv} of limit: dq {row['of_limit_dq']:.3f} dk {row['of_limit_dk']:.3f} "
+           f"dv {row['of_limit_dv']:.3f} (bhsd {row['of_limit_bhsd']:.3f}, bshd "
+           f"{row['of_limit_bshd']:.3f})")
+    del sigmas, ref
+    if timed:
+        iters = 10 if sq * sk >= 1 << 22 else 50
+        row["ms_dq"] = time_ms(
+            lambda: fa.flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, kv_len), iters)
+        row["ms_dkv"] = time_ms(
+            lambda: fa.flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, kv_len), iters)
+        row["ms_dq_bshd"] = time_ms(
+            lambda: fa.flash_bwd_dq_cuda(*views, lse, delta, causal, scale, kv_len), iters)
+        row["ms_dkv_bshd"] = time_ms(
+            lambda: fa.flash_bwd_dkv_cuda(*views, lse, delta, causal, scale, kv_len), iters)
+        row["plain_ms"] = time_ms(lambda: fa.flash_bwd_reference(
+            q, k, v, o, lse, g, causal, scale, kv_len, delta), 3, 1)
+        # SDPA's backward as the yardstick (never called by the port): dq, dk
+        # and dv in one call, so it stands beside both kernels
+        sdpa = {"scale": scale}
+        if causal and sq == sk and kv is None:
+            sdpa["is_causal"] = True
+        elif causal or kv is not None:
+            sdpa["attn_mask"] = fa._visible(sq, sk, causal, kv_len, q.device)
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qr, kr, vr, **sdpa)
+        row["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True), iters)
+        del out, qr, kr, vr
+        bounds = k4_bound(shape, sk, causal, kv, dname)
+        row["bound_ms_dq"], row["bound_by_dq"], flops_dq = bounds["dq"]
+        row["bound_ms_dkv"], row["bound_by_dkv"], flops_dkv = bounds["dkv"]
+        row["tflops_dq"] = flops_dq / (row["ms_dq"] * 1e-3) / 1e12
+        row["tflops_dkv"] = flops_dkv / (row["ms_dkv"] * 1e-3) / 1e12
+        msg += (f" K4a {row['ms_dq']:.4f} ms (bshd {row['ms_dq_bshd']:.4f}, bound "
+                f"{row['bound_ms_dq']:.4f} {row['bound_by_dq']}, {row['tflops_dq']:.1f} TFLOP/s)"
+                f" K4b {row['ms_dkv']:.4f} ms (bshd {row['ms_dkv_bshd']:.4f}, bound "
+                f"{row['bound_ms_dkv']:.4f} {row['bound_by_dkv']}, {row['tflops_dkv']:.1f} "
+                f"TFLOP/s) plain bwd {row['plain_ms']:.4f} sdpa bwd {row['library_ms']:.4f}")
+    log(msg + (" ok" if row["ok"] else " FAIL"))
+    del q, k, v, g, o, lse, delta, views
+    return row
+
+
+def _k1_kv_row(failures, timed, si, label, shape, sk, causal, kv, dname):
+    """K1 with kv_len against the router's plain masked path (a (B, Sk)
+    key mask and the causal mask), within K1's limit (TOL); with `timed`,
+    K1, the plain masked path and SDPA with the same mask, beside K1's
+    bound over the visible pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from instructany2pix_tpu_torch.ops import attention as attn
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dname)
+    b, h, sq, d = shape
+    gen = torch.Generator("cuda").manual_seed(4000 + si)
+    q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
+    kv_len = _kv_tensor(kv)
+    scale = d**-0.5
+    mask = torch.arange(sk, device="cuda")[None, :] < kv_len[:, None]
+    def plain():
+        return attn.dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)), mask=mask,
+                                          causal=causal, scale=scale, impl="xla").transpose(1, 2)
+
+    o_ref = plain()
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s.masked_fill_(~fa._visible(sq, sk, causal, kv_len, s.device), fa.NEG_INF)
+    lse_ref = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    del s
+    sigma = torch.matmul(p.square_(), v.float().square()).sqrt_()
+    del p
+    tol = TOL[dname]
+    ref = (o_ref, lse_ref, tol["rtol"] * o_ref.float().abs() + tol["stol"] * sigma)
+    readings = []
+    for lq, lk, lv in ((q, k, v), tuple(bshd_view(x) for x in (q, k, v))):
+        o, lse = fa.flash_fwd_cuda(lq, lk, lv, causal, scale, return_lse=True, kv_len=kv_len)
+        readings.append(k1_reading(o, lse, ref))
+    row = {"label": label, "dtype": dname, "shape": list(shape), "sk": sk, "causal": causal,
+           "kv_len": list(kv), "ok": all(r["ok"] for r in readings),
+           "err_o": max(r["err_o"] for r in readings),
+           "of_limit": max(r["of_limit"] for r in readings),
+           "err_lse": max(r["err_lse"] for r in readings)}
+    if not row["ok"]:
+        failures.append(f"K1 kv_len {label} {dname}: |o| {row['err_o']:.3g} = "
+                        f"{row['of_limit']:.3g} of its limit, |lse| {row['err_lse']:.3g}")
+    msg = (f"K1 kv_len {label:18s} {dname:8s} {str(shape):18s} kv_len={kv} |o|={row['err_o']:.3g} "
+           f"(of limit {row['of_limit']:.3f}) |lse|={row['err_lse']:.3g}")
+    if timed:
+        iters = 10 if sq * sk >= 1 << 22 else 50
+        row["ms"] = time_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale, kv_len=kv_len), iters)
+        row["plain_ms"] = time_ms(plain, 3, 1)
+        vis = fa._visible(sq, sk, causal, kv_len, q.device)
+        row["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis, scale=scale), iters)
+        flops = 4.0 * d * visible_pairs(b, h, sq, sk, causal, kv)
+        elem = 2 if dname == "bfloat16" else 4
+        t_ops = flops / PEAK_FLOPS[dname]
+        t_mem = elem * b * h * d * (2 * sq + 2 * sk) / HBM_BYTES_PER_S
+        row["bound_ms"] = max(t_ops, t_mem) * 1e3
+        row["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
+        msg += (f" ms={row['ms']:.4f} plain masked={row['plain_ms']:.4f} sdpa+mask="
+                f"{row['library_ms']:.4f} bound={row['bound_ms']:.4f} ({row['bound_by']})")
+    log(msg + (" ok" if row["ok"] else " FAIL"))
+    return row
+
+
+def _function_row(failures, si, label, shape, kv, dname):
+    """Gradients of `dot_product_attention(q, k, v, causal=True, kv_len=...)`
+    on (B, S, H, D) tensors that require them: the path the Llama's training
+    forward takes, which runs `flash_attention`'s autograd Function (K1, then
+    delta from autograd's dO and K4a and K4b). Each of dq, dk and dv must lie
+    within K4_TOL of `flash_bwd_reference` run on the Function's own output
+    o, the plain lse and delta = rowsum(dO o): the two sides then differ by
+    K4's roundings only, and lse by K1's (1e-4, far under 2^-8). The call
+    must launch K1, K4a and K4b once each."""
+    import torch
+
+    from instructany2pix_tpu_torch.ops import attention as attn
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dname)
+    b, s, h, d = shape
+    gen = torch.Generator("cuda").manual_seed(5000 + si)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    kv_len = _kv_tensor(kv)
+    scale = d**-0.5
+    counters = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    before = [c.launches for c in counters]
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        o = attn.dot_product_attention(qr, kr, vr, causal=True, kv_len=kv_len)
+        grads = torch.autograd.grad(o, (qr, kr, vr), g)
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    qt, kt, vt, gt, ot = (x.detach().transpose(1, 2) for x in (q, k, v, g, o))
+    _, lse = fa._reference_attention(qt, kt, vt, True, scale, True, kv_len)
+    delta = fa.flash_delta(gt, ot)
+    ref = fa.flash_bwd_reference(qt, kt, vt, ot, lse, gt, True, scale, kv_len, delta)
+    sigmas = k4_sigmas(fa, qt, kt, vt, gt, lse, delta, True, scale, kv_len)
+    readings = {n: _reading(x.transpose(1, 2), r, sg, K4_TOL[dname])
+                for n, x, r, sg in zip(("dq", "dk", "dv"), grads, ref, sigmas)}
+    row = {"label": label, "dtype": dname, "shape_bshd": list(shape), "kv_len": list(kv),
+           "launches_k1_k4a_k4b": launched,
+           "ok": all(r["ok"] for r in readings.values()) and launched == [1, 1, 1]}
+    for n, r in readings.items():
+        row[f"err_{n}"], row[f"of_limit_{n}"] = r["err"], r["of_limit"]
+    row["of_limit"] = max(r["of_limit"] for r in readings.values())
+    if not row["ok"]:
+        failures.append(f"flash Function {label} {dname}: " + ", ".join(
+            f"|{n}| {r['err']:.3g} = {r['of_limit']:.3g} of its limit" for n, r in readings.items())
+            + f"; launches K1/K4a/K4b {launched} (expected [1, 1, 1])")
+    log(f"flash Function {label:18s} {dname:8s} bshd {str(shape):20s} kv_len={kv} of limit: "
+        + " ".join(f"{n} {r['of_limit']:.3f}" for n, r in readings.items())
+        + f" launches {launched}" + (" ok" if row["ok"] else " FAIL"))
+    del q, k, v, g, qr, kr, vr, o, grads, ref, sigmas, lse, delta
+    return row
+
+
+def _empty_calls(failures):
+    """K1, K4a and K4b on empty inputs (no query rows; no key rows): zeros
+    or empty outputs and no launch counted."""
+    import torch
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    counters = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    before = [c.launches for c in counters]
+    ok = True
+    for sq, sk in ((0, 64), (64, 0)):
+        q, g = (torch.ones(1, 2, sq, 128, dtype=torch.bfloat16, device="cuda") for _ in range(2))
+        k, v = (torch.ones(1, 2, sk, 128, dtype=torch.bfloat16, device="cuda") for _ in range(2))
+        stats = torch.zeros(1, 2, sq, device="cuda")
+        dq = fa.flash_bwd_dq_cuda(q, k, v, g, stats, stats, True, 0.1)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, g, stats, stats, True, 0.1)
+        if sq == 0:
+            fa.flash_fwd_cuda(q, k, v, True, 0.1, return_lse=True)
+        ok &= not (dq.any() or dk.any() or dv.any())
+    counted = [c.launches - n for c, n in zip(counters, before)]
+    if counted != [0, 0, 0] or not ok:
+        failures.append(f"empty calls: launches counted K1/K4a/K4b {counted}, zero outputs {ok}")
+    log(f"empty calls: launches counted K1/K4a/K4b {counted}, zero outputs {ok}")
+    return {"launches_counted": counted, "zero_outputs": ok}
+
+
+def phase_k4(failures, timed=True):
+    """K1 with kv_len against the plain masked path at K1_KV_SHAPES; K4a and
+    K4b against the plain backward at every K4_SHAPES entry, on contiguous
+    inputs and on the (B, S, H, D) views the router passes (K4_TOL); with
+    `timed`, K4a, K4b, the plain backward and SDPA's backward timed with
+    CUDA events beside each kernel's bound. Then the autograd Function's
+    gradients through the router at FN_SHAPES and the empty calls."""
+    import torch
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {"k1_kv_len": [], "k4": [], "function": []}
+    try:
+        for si, row in enumerate(K1_KV_SHAPES):
+            out["k1_kv_len"].append(_k1_kv_row(failures, timed, si, *row))
+            torch.cuda.empty_cache()
+        for si, row in enumerate(K4_SHAPES):
+            out["k4"].append(_k4_row(failures, timed, si, *row))
+            torch.cuda.empty_cache()
+        for si, row in enumerate(FN_SHAPES):
+            out["function"].append(_function_row(failures, si, *row))
+            torch.cuda.empty_cache()
+        out["empty_calls"] = _empty_calls(failures)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    return out
+
+
 def _build_faults(src_name, faults):
     """Write and build each broken copy of csrc/<src_name>.cu under
     build/faults; returns {fault: library path}."""
@@ -633,8 +1053,8 @@ def _build_faults(src_name, faults):
         cu.write_text(src.replace(old, new))
         so = cu.with_suffix(".so")
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            _build.nvcc_command(cu, so), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
     for name, (so, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -643,8 +1063,8 @@ def _build_faults(src_name, faults):
 
 
 def planted_faults(failures):
-    """Build each FAULTS copy of K1, QMV_FAULTS copy of K2 and K3_FAULTS copy
-    of K3 (under build/faults), run the kernel's check with it in place of
+    """Build each FAULTS copy of K1, QMV_FAULTS copy of K2, K3_FAULTS copy of
+    K3 and K4_FAULTS copy of K4 (under build/faults), run the kernel's check with it in place of
     the kernel, and require that the real kernels pass at every shape while
     each copy is refused at one shape at least."""
     import ctypes
@@ -659,6 +1079,9 @@ def planted_faults(failures):
          lambda r: r["of_limit"]),
         ("K3", "flash_fwd", K3_FAULTS, phase_k3, lambda r: r["label"],
          lambda r: [r["of_limit_bhsd"], r["of_limit_bshd"], r["of_limit_qkv"]]),
+        ("K4", "flash_bwd", K4_FAULTS, lambda f, timed: phase_k4(f, timed)["k4"],
+         lambda r: f"{r['label']} {r['dtype']}",
+         lambda r: [r["of_limit_dq"], r["of_limit_dk"], r["of_limit_dv"]]),
     )
     for kernel, src_name, faults, check, key, reading in kernels:
         built = _build_faults(src_name, faults)
@@ -748,6 +1171,7 @@ def phase_full_width(failures):
             fa.flash_fwd_cuda.launches = 0
             fa.flash_relpos2d_cuda.launches = 0
             Q.qmv_cuda.launches = 0
+            reset_k4(fa)
             t0 = time.time()
             img = pipe.text2img("a photo of a cat in an antique shop", num_inference_steps=STEPS,
                                 seed=1, **kw)
@@ -755,6 +1179,7 @@ def phase_full_width(failures):
             dt = time.time() - t0
             launches = fa.flash_fwd_cuda.launches
             k2, k3 = Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches
+            k4 = no_k4(fa, failures, f"request {name}")
             ok = (img.shape == (1024, 1024, 3) and img.dtype == np.uint8 and finite[-1]
                   and launches == expected and k3 == 0)
             if not ok:
@@ -763,7 +1188,7 @@ def phase_full_width(failures):
                                 f"K3 launches {k3} (expected 0)")
             out["requests"].append({"name": name, "seconds": dt, "k1_launches": launches,
                                     "k1_expected": expected, "k2_launches": k2,
-                                    "k3_launches": k3, "mean_pixel": float(img.mean())})
+                                    "k3_launches": k3, **k4, "mean_pixel": float(img.mean())})
             log(f"request {name}: {dt:.3f} s, {STEPS} steps, K1 launches {launches} "
                 f"(expected {expected}), K2 {k2}, K3 {k3} (expected 0), image {img.shape} "
                 f"{img.dtype} mean {img.mean():.2f}, finite {finite[-1]}")
@@ -877,11 +1302,13 @@ def phase_edit(pipe, failures, finite):
         fa.flash_fwd_cuda.launches = 0
         fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
+        reset_k4(fa)
         t0 = time.time()
         res = pipe.forward_llm(inst, media, generator=torch.Generator("cuda").manual_seed(0))
         torch.cuda.synchronize()
         out["forward_llm_seconds"] = time.time() - t0
         k1, k2, k3 = fa.flash_fwd_cuda.launches, Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches
+        out.update(no_k4(fa, failures, "forward_llm"))
         gen = pipe.last_generate
         t_max = gen.tokens.shape[1]
         steps = min(int(gen.done_at[0]), t_max - 1)  # decode steps the loop ran
@@ -992,6 +1419,7 @@ def phase_edit(pipe, failures, finite):
         fa.flash_fwd_cuda.launches = 0
         fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
+        reset_k4(fa)
         n_decoded = len(finite)
         t0 = time.time()
         non_refined, refined, msg = pipe(inst, media, num_inference_steps=EDIT_STEPS,
@@ -999,6 +1427,7 @@ def phase_edit(pipe, failures, finite):
         torch.cuda.synchronize()
         out["call_seconds"] = time.time() - t0
         k1, k3 = fa.flash_fwd_cuda.launches, fa.flash_relpos2d_cuda.launches
+        out.update({"call_" + k: v for k, v in no_k4(fa, failures, "__call__").items()})
         out.update({"call_stage_seconds": dict(pipe.stage_times), "call_k1_launches": k1,
                     "call_k1_expected": expected, "call_k2_launches": Q.qmv_cuda.launches,
                     "call_k3_launches": k3,
@@ -1085,6 +1514,7 @@ def phase_subject(pipe, failures, finite):
         fa.flash_fwd_cuda.launches = 0
         fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
+        reset_k4(fa)
         n_decoded = len(finite)
         t0 = time.time()
         non_refined, edited, msg = pipe("Put <video> into the picture.", media,
@@ -1093,6 +1523,7 @@ def phase_subject(pipe, failures, finite):
         torch.cuda.synchronize()
         out["call_seconds"] = time.time() - t0
         k1, k3 = fa.flash_fwd_cuda.launches, fa.flash_relpos2d_cuda.launches
+        out.update(no_k4(fa, failures, "subject __call__"))
         pipe.cache = None
     out.update({"stage_seconds": dict(pipe.stage_times), "k1_launches": k1,
                 "k1_expected": k1_expected, "k3_launches": k3, "segmentor_calls": len(masks),
@@ -1152,10 +1583,375 @@ def phase_subject(pipe, failures, finite):
     return out
 
 
+def _write_train_dataset(d, row_chars, codec_dim, seed):
+    """A synthetic instruction dataset in `d`: one record per entry of
+    `row_chars` (the length of its gpt reply in characters; the byte
+    tokenizer gives about one token each), image targets but for the last
+    record (audio), bracketed captions, a base and an addition, and a random
+    `codec_dim` .npz feature per caption. Returns (data.json path, media map)."""
+    import json
+    import os
+
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    words = ["red", "cat", "moves", "a", "bright", "under", "sky", "with", "the", "dog", "over",
+             "soft", "light", "blue", "music", "plays"]
+    feats, records = {}, []
+    for i, n in enumerate(row_chars):
+        caps = {"src": f"source image {i}", "base": f"base image {i}", "tgt": f"target {i}",
+                "add": f"subject {i}"}
+        for cap in caps.values():
+            path = os.path.join(d, cap.replace(" ", "_") + ".npz")
+            np.savez(path, state=rs.randn(codec_dim).astype(np.float32))
+            feats[cap] = os.path.basename(path)
+        reply = " ".join(rs.choice(words, n))[:n]
+        records.append({
+            "conversations": [
+                {"from": "human", "value": f"change [{caps['src']}] so that it shows more"},
+                {"from": "gpt", "value": f"[{caps['tgt']}] {reply}"}],
+            "base": caps["base"], "target": caps["tgt"], "additions": [caps["add"]],
+            "modality": "audio" if i == len(row_chars) - 1 else "image"})
+    data = os.path.join(d, "data.json")
+    with open(data, "w") as f:
+        json.dump(records, f)
+    return data, feats
+
+
+TRAIN_LAYERS = 4  # of Vicuna-7B's 32 decoder layers; every width is kept
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 5
+TRAIN_ROW_CHARS = (2400, 1650, 1290, 750)  # rows of about 2650 (cut to 2048), 1900, 1540, 1000 tokens
+
+
+def _counts(fa, Q):
+    return (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches, Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches)
+
+
+def phase_train(failures):
+    """The trainer at full width: `train.launch.train` on Any2PixLMConfig()
+    with Vicuna-7B's widths, TRAIN_LAYERS decoder layers, bf16 parameters and
+    moments, remat "dots", batch 4 x max_length 2048 from the port's collate
+    over a synthetic dataset; TRAIN_STEPS steps, a preview and a checkpoint.
+    Every step: finite losses and grad_norm, and exact K1/K4a/K4b launches;
+    K2 and K3 stay at 0. Then one step profiled by kernel class."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.llm import multimodal as mm
+    from instructany2pix_tpu_torch.llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.train import data as data_lib
+    from instructany2pix_tpu_torch.train import launch
+    from instructany2pix_tpu_torch.train.train_step import TrainConfig, make_train_step
+
+    tok = load_tokenizer(None)
+    ids = initialize_vision_tokenizer(tok)
+    base = mm.Any2PixLMConfig().with_token_ids(ids)
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(
+        base.llama, num_layers=TRAIN_LAYERS, remat=True, remat_policy="dots"))
+    L = cfg.llama.num_layers
+    # per step with remat: K1 once in the forward and once more when the
+    # backward recomputes each checkpointed layer; K4a and K4b once per layer
+    per_step = {"k1": 2 * L, "k4a": L, "k4b": L, "k2": 0, "k3": 0}
+    train_cfg = TrainConfig(total_steps=TRAIN_STEPS)
+    out = {"layers": L, "of_layers": base.llama.num_layers, "batch": TRAIN_BATCH,
+           "max_length": TRAIN_LEN, "steps": TRAIN_STEPS, "per_step_expected": per_step}
+    with tempfile.TemporaryDirectory() as d:
+        data, feats = _write_train_dataset(d, TRAIN_ROW_CHARS, cfg.image_codec_dim, 21)
+        dcfg = data_lib.DataConfig(max_length=TRAIN_LEN, audio_codec_dim=cfg.audio_codec_dim)
+        make_ds = lambda: data_lib.InstructionDataset(  # noqa: E731
+            data, data_lib.MediaMap(feats, d, cfg.image_codec_dim), tok, ids, dcfg)
+        # the first batch, as train() will collate it (same order, same rewrite stream)
+        ds0 = make_ds()
+        order = data_lib.length_grouped_indices(ds0.modality_lengths, TRAIN_BATCH,
+                                                np.random.RandomState(0))
+        first = data_lib.collate([ds0[int(i)] for i in order[:TRAIN_BATCH]], tok, ids, dcfg,
+                                 codec_dim=cfg.image_codec_dim)
+        lengths = first["attention_mask"].sum(1).tolist()
+        out["row_lengths"] = lengths
+        if max(lengths) != TRAIN_LEN or len(set(lengths)) != TRAIN_BATCH:
+            failures.append(f"train: row lengths {lengths}, expected ragged with a {TRAIN_LEN} row")
+        params = mm.init(cfg, torch.Generator("cuda").manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16)
+        out["params"] = sum(p.numel() for p in params.parameters())
+        steps = []
+        t_last = [0.0]
+
+        def hook(step_i, metrics):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            c = _counts(fa, Q)
+            prev = steps[-1]["counts"] if steps else (0,) * 5
+            vals = {k: float(v) for k, v in metrics.items()}
+            steps.append({"step": step_i + 1, "seconds": now - t_last[0], "counts": c,
+                          "launches": dict(zip(("k1", "k4a", "k4b", "k2", "k3"),
+                                               [a - b for a, b in zip(c, prev)])),
+                          "metrics": vals,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+            t_last[0] = now
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd_cuda.launches = 0
+        fa.flash_relpos2d_cuda.launches = 0
+        Q.qmv_cuda.launches = 0
+        reset_k4(fa)
+        t_last[0] = time.perf_counter()
+        res = launch.train(cfg, train_cfg, make_ds(), batch_size=TRAIN_BATCH,
+                           ckpt_dir=os.path.join(d, "ck"), save_steps=TRAIN_STEPS, log_steps=1,
+                           preview_steps=TRAIN_STEPS, preview_dir=os.path.join(d, "preview"),
+                           device="cuda", params=params, step_hook=hook)
+        torch.cuda.synchronize()
+        run = dict(zip(("k1", "k4a", "k4b", "k2", "k3"), _counts(fa, Q)))
+        # the preview after the last step runs one forward without remat
+        run_expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+        run_expected["k1"] += L
+        out.update({"steps_run": [{k: v for k, v in st.items() if k != "counts"} for st in steps],
+                    "launches": run, "launches_expected": run_expected, "saves": res["saves"],
+                    "preview_written": os.path.exists(os.path.join(d, "preview",
+                                                                   f"step_{TRAIN_STEPS}.png"))})
+        for st in steps:
+            finite = all(np.isfinite(v) for v in st["metrics"].values())
+            if not finite or st["launches"] != per_step:
+                failures.append(f"train step {st['step']}: finite {finite} ({st['metrics']}), "
+                                f"launches {st['launches']} (expected {per_step})")
+        if run != run_expected or len(steps) != TRAIN_STEPS or not out["preview_written"]:
+            failures.append(f"train: launches {run} (expected {run_expected}), {len(steps)} "
+                            f"steps, preview written {out['preview_written']}")
+        times = sorted(st["seconds"] for st in steps[2:])
+        out["step_seconds_median_3_5"] = times[len(times) // 2]
+        out["tokens_per_step"] = TRAIN_BATCH * int(first["input_ids"].shape[1])
+        out["real_tokens_first_batch"] = int(sum(lengths))
+        out["tokens_per_s"] = out["tokens_per_step"] / out["step_seconds_median_3_5"]
+        out["peak_gib"] = max(st["peak_gib"] for st in steps)
+        for st in steps:
+            log(f"train step {st['step']}: {st['seconds']:.3f} s, launches {st['launches']}, "
+                + ", ".join(f"{k} {v:.5g}" for k, v in st["metrics"].items()))
+        save = res["saves"][-1]
+        log(f"train ({L} of {base.llama.num_layers} layers, {out['params'] / 1e9:.3f} B params, "
+            f"bf16, remat dots, batch {TRAIN_BATCH} x {first['input_ids'].shape[1]}, rows "
+            f"{lengths}): step median of 3-5 {out['step_seconds_median_3_5']:.3f} s, "
+            f"{out['tokens_per_s']:.0f} tokens/s (padded), peak {out['peak_gib']:.2f} GiB; "
+            f"launches over the run {run} (expected {run_expected}); checkpoint "
+            f"{save['bytes'] / 2**30:.2f} GiB in {save['seconds']:.2f} s")
+
+        # one more step, profiled by kernel class (lr is 0 past the schedule's end)
+        _, train_step = make_train_step(cfg, train_cfg)
+        state = res["state"]
+        batch = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+        out["step_profile"] = profile_window(lambda: train_step(state, batch), "train step", n=1)
+        del state, batch, res, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tiny_train(failures):
+    """The tiny config in fp32 with remat "dots", on the card against the
+    same parameters and the same collated batch on the CPU: three
+    `train_step`s (losses, grad_norm and parameters within the tolerances of
+    tests/test_torch_train.py), then five steps at lr 5e-3 on the card, where
+    the loss must fall, then `train.launch.train` on the card for 2 steps
+    with a checkpoint and a resume that goes on to step 4."""
+    import copy
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch import convert
+    from instructany2pix_tpu_torch.llm import multimodal as mm
+    from instructany2pix_tpu_torch.llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.train import data as data_lib
+    from instructany2pix_tpu_torch.train import launch
+    from instructany2pix_tpu_torch.train import train_step as ts
+
+    tok = load_tokenizer(None)
+    ids = initialize_vision_tokenizer(tok)
+    base = mm.Any2PixLMConfig.tiny(ids)
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(base.llama, remat=True,
+                                                              remat_policy="dots"))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        data, feats = _write_train_dataset(d, (40, 25), cfg.image_codec_dim, 22)
+        dcfg = data_lib.DataConfig(max_length=512, audio_codec_dim=cfg.audio_codec_dim)
+        ds = data_lib.InstructionDataset(data, data_lib.MediaMap(feats, d, cfg.image_codec_dim),
+                                         tok, ids, dcfg)
+        batch_np = data_lib.collate([ds[0], ds[1]], tok, ids, dcfg, codec_dim=cfg.image_codec_dim)
+        params = mm.init(cfg, torch.Generator().manual_seed(0))
+        tcfg = ts.TrainConfig(learning_rate=1e-3, total_steps=100)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            init_state, step = ts.make_train_step(cfg, tcfg)
+            state = init_state(copy.deepcopy(params).to(dev))
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+            before = _counts(fa, Q)
+            hist = [{k: float(v) for k, v in step(state, batch)[1].items()} for _ in range(3)]
+            runs[dev] = (hist, convert.to_tree(state["params"]),
+                         [a - b for a, b in zip(_counts(fa, Q), before)])
+        L = cfg.llama.num_layers
+        launches = dict(zip(("k1", "k4a", "k4b", "k2", "k3"), runs["cuda"][2]))
+        expected = {"k1": 3 * 2 * L, "k4a": 3 * L, "k4b": 3 * L, "k2": 0, "k3": 0}
+        worst = {}
+        for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
+            for k in mc:
+                rel = abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+                worst[k] = max(worst.get(k, 0.0), rel)
+        # the tolerances of tests/test_torch_train.py (float32 both sides)
+        lr_sum = sum(ts.learning_rate(tcfg, i) for i in range(3))
+        pmax = pmean = 0.0
+        ok_params = True
+        flat_c = _flatten(runs["cpu"][1])
+        flat_g = _flatten(runs["cuda"][1])
+        for key, a in flat_c.items():
+            diff = np.abs(flat_g[key] - a)
+            rounding = 1e-6 * float(np.abs(a).max())
+            pmax = max(pmax, float(diff.max()) / lr_sum)
+            pmean = max(pmean, float(diff.mean()) / lr_sum)
+            ok_params &= bool(diff.max() <= 0.1 * lr_sum + rounding
+                              and diff.mean() <= 1e-4 * lr_sum + rounding)
+        out.update({"per_step_cpu": runs["cpu"][0], "per_step_card": runs["cuda"][0],
+                    "worst_rel": worst, "param_max_diff_of_lr_sum": pmax,
+                    "param_mean_diff_of_lr_sum": pmean, "launches": launches,
+                    "launches_expected": expected})
+        if max(worst.values()) > 1e-5 or not ok_params or launches != expected:
+            failures.append(f"tiny train card vs CPU: worst relative metric difference {worst}, "
+                            f"params max {pmax:.3g} / mean {pmean:.3g} of the summed lr, "
+                            f"launches {launches} (expected {expected})")
+        log(f"tiny train fp32, card vs CPU, 3 steps: worst relative difference "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + f" (tol 1e-05); params max diff {pmax:.3g}, mean {pmean:.3g} of the summed lr "
+            f"(tol 0.1, 1e-4); card launches {launches} (expected {expected})")
+
+        out["bf16_head_dim_128"] = _tiny_bf16_grads(failures, cfg, batch_np)
+
+        # the loss falls on the card (as tests/test_serve_train.py asks of the JAX step)
+        init_state, step = ts.make_train_step(cfg, ts.TrainConfig(learning_rate=5e-3,
+                                                                  total_steps=100))
+        state = init_state(copy.deepcopy(params).cuda())
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(5)]
+        out["losses_lr5e-3"] = losses
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            failures.append(f"tiny train on the card: the loss did not fall: {losses}")
+        log(f"tiny train on the card, lr 5e-3: losses {[round(x, 4) for x in losses]}")
+
+        # the launcher on the card: 2 steps and a checkpoint, then a resume to step 4
+        kw = dict(batch_size=2, ckpt_dir=os.path.join(d, "ck"), save_steps=2, log_steps=1,
+                  preview_steps=2, preview_dir=os.path.join(d, "preview"), device="cuda")
+        r1 = launch.train(cfg, ts.TrainConfig(total_steps=2), ds, **kw)
+        r2 = launch.train(cfg, ts.TrainConfig(total_steps=4), ds, resume=True, **kw)
+        out["resume"] = {"first": [r1["start_step"], r1["state"]["step"]],
+                         "second": [r2["start_step"], r2["state"]["step"]]}
+        if (r1["start_step"], r1["state"]["step"], r2["start_step"], r2["state"]["step"]) != (
+                0, 2, 2, 4):
+            failures.append(f"launcher save/resume on the card: {out['resume']}")
+        log(f"launcher on the card: steps {out['resume']['first']} then resumed "
+            f"{out['resume']['second']}")
+    return out
+
+
+def _tiny_bf16_grads(failures, cfg, batch_np):
+    """The training loss's gradients in bf16 at head_dim 128, where K1 and
+    K4 take their tensor-core paths inside `train_forward` with remat
+    "dots" (2 heads of 128 on the tiny config's 2 layers, seeded weights).
+    The card and the plain CPU versions round to bf16 at the same points,
+    so each parameter's gradient on the card must lie as close to the
+    float32 gradient of the same weights on the CPU as the CPU's bf16
+    gradient does: |g_card - g_f32| <= 2 |g_cpu - g_f32| + 2^-8 |g_f32| in
+    L2 norm (two independent draws of the same rounding noise, plus one
+    bf16 rounding). A wiring fault (delta, the recompute, the scale) moves a
+    gradient by its own size. Also: K1 twice (forward and recompute) and
+    K4a and K4b once per layer."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.llm import multimodal as mm
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+
+    cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, hidden_size=256, intermediate_size=512, num_heads=2, num_kv_heads=2))
+    params = mm.init(cfg, torch.Generator().manual_seed(1), dtype=torch.bfloat16)
+    L = cfg.llama.num_layers
+
+    def grads(module, dev):
+        module = copy.deepcopy(module).to(dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        before = _counts(fa, Q)
+        with torch.enable_grad():
+            loss, _ = mm.train_forward(module, cfg, batch)
+            names, ps = zip(*module.named_parameters())
+            gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        counts = [a - b for a, b in zip(_counts(fa, Q), before)]
+        return float(loss.detach()), {n: (torch.zeros_like(p) if g is None else g).double().cpu()
+                             for n, p, g in zip(names, ps, gs)}, counts
+
+    loss32, g32, _ = grads(copy.deepcopy(params).float(), "cpu")
+    loss_cpu, g_cpu, _ = grads(params, "cpu")
+    # cuBLAS's bf16 GEMMs sum in float32, as the CPU's do
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        loss_card, g_card, counts = grads(params, "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    launches = dict(zip(("k1", "k4a", "k4b", "k2", "k3"), counts))
+    expected = {"k1": 2 * L, "k4a": L, "k4b": L, "k2": 0, "k3": 0}
+    worst, bad = 0.0, []
+    for n, ref in g32.items():
+        e_card = float((g_card[n] - ref).norm())
+        e_cpu = float((g_cpu[n] - ref).norm())
+        limit = 2 * e_cpu + 2**-8 * float(ref.norm())
+        if limit > 0:
+            worst = max(worst, e_card / limit)
+        if not (np.isfinite(e_card) and e_card <= limit):
+            bad.append(f"{n}: {e_card:.3g} > {limit:.3g}")
+    loss_limit = 2 * abs(loss_cpu - loss32) + 2**-8 * abs(loss32)
+    row = {"loss_f32": loss32, "loss_cpu_bf16": loss_cpu, "loss_card_bf16": loss_card,
+           "loss_of_limit": abs(loss_card - loss32) / loss_limit if loss_limit else 0.0,
+           "grad_worst_of_limit": worst, "launches": launches, "launches_expected": expected,
+           "params_outside": bad}
+    if bad or abs(loss_card - loss32) > loss_limit or launches != expected:
+        failures.append(f"tiny bf16 head_dim 128 grads: outside {bad[:4]}, loss {loss_card} vs "
+                        f"{loss32} (limit {loss_limit:.3g}), launches {launches} "
+                        f"(expected {expected})")
+    log(f"tiny bf16 head_dim 128 grads, card vs CPU float32: worst {worst:.3f} of the limit "
+        f"over {len(g32)} parameters, loss {loss_card:.6f} (cpu bf16 {loss_cpu:.6f}, f32 "
+        f"{loss32:.6f}), launches {launches}" + (" FAIL" if bad else " ok"))
+    return row
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def _kernel_class(name):
     n = name.lower()
     if "relpos2d" in n:
         return "k3"
+    if "bwd_dq" in n:
+        return "k4a"
+    if "bwd_dkv" in n:
+        return "k4b"
     if "flash_fwd" in n:
         return "k1"
     if "qmv_" in n:
@@ -1359,8 +2155,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--planted-faults", action="store_true",
                     help="instead of the phases: build broken copies of K1 (FAULTS), K2 "
-                         "(QMV_FAULTS) and K3 (K3_FAULTS) and show that the checks refuse each "
-                         "while the real kernels pass")
+                         "(QMV_FAULTS), K3 (K3_FAULTS) and K4 (K4_FAULTS) and show that the "
+                         "checks refuse each while the real kernels pass")
     ap.add_argument("--out", help="also write every reading to this JSON file")
     args = ap.parse_args(argv)
 
@@ -1408,18 +2204,28 @@ def main(argv=None) -> int:
     k3rows = phase_k3(failures)
     t_k3 = time.time() - t0
     t0 = time.time()
+    k4 = phase_k4(failures)
+    t_k4 = time.time() - t0
+    t0 = time.time()
     full = phase_full_width(failures)
     t_full = time.time() - t0
     t0 = time.time()
+    train = phase_train(failures)
+    t_train = time.time() - t0
+    t0 = time.time()
     tiny = phase_tiny_reference(failures)
-    seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "k3_checks": t_k3, "full_width": t_full,
-               "tiny": time.time() - t0, "total": time.time() - t_start}
+    t_tiny = time.time() - t0
+    t0 = time.time()
+    tiny_train = phase_tiny_train(failures)
+    seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "k3_checks": t_k3, "k4_checks": t_k4,
+               "full_width": t_full, "train": t_train, "tiny": t_tiny,
+               "tiny_train": time.time() - t0, "total": time.time() - t_start}
     edit, subject = full["edit"], full["subject"]
 
     head = next(r for r in rows if r["dtype"] == "bfloat16")
     k1_paths = {"text2img": sum(r["k1_launches"] for r in full["requests"]),
                 "forward_llm": edit["k1_launches"], "edit_call": edit["call_k1_launches"],
-                "subject_call": subject["k1_launches"]}
+                "subject_call": subject["k1_launches"], "train": train["launches"]["k1"]}
     k1 = {
         "name": "flash_fwd",
         "route": "cuda",
@@ -1429,7 +2235,7 @@ def main(argv=None) -> int:
         "launches_by_path": k1_paths,
         "max_abs_err": max(r["err_o"] for r in rows if r["dtype"] == "bfloat16"),
         "max_abs_err_fp32": max(r["err_o"] for r in rows if r["dtype"] == "float32"),
-        "max_err_of_limit": max(r["of_limit"] for r in rows),
+        "max_err_of_limit": max(r["of_limit"] for r in rows + k4["k1_kv_len"]),
         "ms": head["ms"],
         "ms_bshd": head["ms_bshd"],
         "plain_ms": head["plain_ms"],
@@ -1438,6 +2244,9 @@ def main(argv=None) -> int:
         "library_ms": head["library_ms"],
         "headline_shape": f"{head['label']} {head['shape']} sk={head['sk']} bf16",
         "shapes": rows,
+        "kv_len_shapes": k4["k1_kv_len"],
+        "training_shape": {k: k4["k1_kv_len"][0][k] for k in (
+            "label", "shape", "kv_len", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
     }
     qhead = next(r for r in qrows if r["label"] == "7B qkv + norm" and r["m"] == 1)
     k2 = {
@@ -1451,7 +2260,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"text2img": sum(r["k2_launches"] for r in full["requests"]),
                              "forward_llm": edit["k2_launches"],
                              "edit_call": edit["call_k2_launches"],
-                             "subject_call": subject["k2_launches"]},
+                             "subject_call": subject["k2_launches"],
+                             "train": train["launches"]["k2"]},
         "max_abs_err": max(r["err"] for r in qrows),
         "max_err_of_limit": max(r["of_limit"] for r in qrows),
         "ms": qhead["ms"],
@@ -1473,7 +2283,8 @@ def main(argv=None) -> int:
         "launches": subject["k3_launches"],
         "launches_by_path": {"text2img": sum(r["k3_launches"] for r in full["requests"]),
                              "forward_llm": edit["k3_launches"], "edit_call": edit["call_k3_launches"],
-                             "subject_call": subject["k3_launches"]},
+                             "subject_call": subject["k3_launches"],
+                             "train": train["launches"]["k3"]},
         "max_abs_err": max(r["err_o"] for r in k3rows),
         "max_err_of_limit": max(r["of_limit"] for r in k3rows),
         "ms": k3head["ms"],
@@ -1488,13 +2299,50 @@ def main(argv=None) -> int:
                                       "bound_ms", "bound_by", "err_o", "of_limit", "of_limit_qkv")}
                    for r in k3rows],
     }
-    result = {"card": card, "k2_shapes": qrows, "full_width": full, "tiny_reference": tiny,
-              "seconds": seconds}
+    k4head = next(r for r in k4["k4"] if r["label"] == "llama train")
+    k4rows = [{k: r.get(k) for k in (
+        "label", "dtype", "path", "shape", "sk", "causal", "kv_len", "ms_dq", "ms_dkv", "plain_ms",
+        "library_ms", "bound_ms_dq", "bound_by_dq", "bound_ms_dkv", "bound_by_dkv", "err_dq",
+        "err_dk", "err_dv", "of_limit_dq", "of_limit_dk", "of_limit_dv")} for r in k4["k4"]]
+
+    def k4_entry(name, key, short, line, out_key, ms_key):
+        bf16 = [r for r in k4["k4"] if r["dtype"] == "bfloat16"]
+        paths = {"text2img": sum(r[key] for r in full["requests"]), "forward_llm": edit[key],
+                 "edit_call": edit["call_" + key], "subject_call": subject[key],
+                 "train": train["launches"][short]}
+        return {
+            "name": name, "route": "cuda",
+            "source": "instructany2pix_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"instructany2pix_tpu/ops/flash_attention.py:{line}",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(max(r[f"err_{o}"] for o in out_key) for r in bf16),
+            "max_abs_err_fp32": max(max(r[f"err_{o}"] for o in out_key) for r in k4["k4"]
+                                    if r["dtype"] == "float32"),
+            "max_err_of_limit": max(max(r[f"of_limit_{o}"] for o in out_key)
+                                    for r in k4["k4"] + k4["function"]),
+            "ms": k4head[f"ms_{ms_key}"], "ms_bshd": k4head[f"ms_{ms_key}_bshd"],
+            "plain_ms": k4head["plain_ms"],
+            "plain_call": "flash_bwd_reference: the whole plain backward (dq, dk and dv)",
+            "bound_ms": k4head[f"bound_ms_{ms_key}"], "bound_by": k4head[f"bound_by_{ms_key}"],
+            "library_ms": k4head["library_ms"],
+            "library_call": "torch.autograd.grad through F.scaled_dot_product_attention("
+                            "is_causal=True), backward only: dq, dk and dv in one call",
+            "headline_shape": "Llama training (4, 32, 2048, 128), causal, bf16",
+            "shapes": k4rows,
+        }
+
+    k4a = k4_entry("flash_bwd_dq", "k4a_launches", "k4a", 321, ("dq",), "dq")
+    k4b = k4_entry("flash_bwd_dkv", "k4b_launches", "k4b", 367, ("dk", "dv"), "dkv")
+    kernels = [k1, k2, k3, k4a, k4b]
+    result = {"card": card, "k2_shapes": qrows, "k4": k4, "full_width": full, "train": train,
+              "tiny_reference": tiny, "tiny_train": tiny_train, "seconds": seconds}
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({**result, "kernels": [k1, k2, k3]}, f, indent=1, default=str)
+            json.dump({**result, "kernels": kernels}, f, indent=1, default=str)
     summary = {k: v for k, v in full.items() if k not in ("edit", "subject", "unet_step_profile")}
     log(json.dumps({"full_width": summary, "tiny_reference": tiny, "seconds": seconds}))
+    log(json.dumps({"train": {k: v for k, v in train.items() if k != "step_profile"},
+                    "tiny_train": tiny_train}, default=str))
     log(json.dumps({"edit": {k: v for k, v in edit.items() if k != "decode_profile"}}))
     log(json.dumps({"subject": subject}, default=str))
     if failures:
@@ -1502,7 +2350,7 @@ def main(argv=None) -> int:
             print(f"FAIL: {f}", file=sys.stderr)
         return 1
     log(card)
-    log(json.dumps({"kernels": [k1, k2, k3]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ re-join into `ff_in` (value half, then gate half). Loading is strict:
 a tree key without a counterpart, a shape mismatch or a module parameter
 the tree leaves unset raises.
 
-Trees may hold numpy arrays or anything `numpy.asarray` accepts.
+Trees may hold numpy arrays or anything `numpy.asarray` accepts. Built
+modules are frozen for inference (`eval`, no gradients), except the
+trainer's `llm(..., trainable=True)`; `to_tree`
+maps a float module back to a numpy tree in the JAX layout, to compare
+parameters after training steps.
 """
 
 from __future__ import annotations
@@ -230,12 +234,15 @@ def _prepare_llama(lm: nn.Module, tree: dict) -> list:
 
 
 def _build_llama_like(m: nn.Module, lm: nn.Module, tree: dict, llama_tree: dict, device,
-                      dtype) -> nn.Module:
+                      dtype, trainable: bool = False) -> nn.Module:
     quantized = _prepare_llama(lm, llama_tree)
+    if quantized and trainable:
+        raise ValueError("a quantized tree cannot be built trainable")
     m = L.materialize(m, torch.device(device), dtype)
     for owner, key, sub in quantized:
         setattr(owner, key, _qlinear_empty(sub, device, dtype))
-    return load_tree(m, tree).eval().requires_grad_(False)
+    m = load_tree(m, tree)
+    return m.train().requires_grad_(True) if trainable else m.eval().requires_grad_(False)
 
 
 def llama(tree, cfg: llama_lib.LlamaConfig, device="cpu", dtype=torch.float32) -> llama_lib.Llama:
@@ -246,10 +253,38 @@ def llama(tree, cfg: llama_lib.LlamaConfig, device="cpu", dtype=torch.float32) -
     return _build_llama_like(m, m, tree, tree, device, dtype)
 
 
-def llm(tree, cfg: mm_lib.Any2PixLMConfig, device="cpu", dtype=torch.float32) -> mm_lib.Any2PixLM:
-    """An Any2PixLM from the JAX `llm` tree (the Llama as `llama` does)."""
+def llm(tree, cfg: mm_lib.Any2PixLMConfig, device="cpu", dtype=torch.float32,
+        trainable: bool = False) -> mm_lib.Any2PixLM:
+    """An Any2PixLM from the JAX `llm` tree (the Llama as `llama` does).
+    `trainable=True` (float trees only) gives the trainer's module: every
+    parameter requires a gradient."""
     m = _meta(mm_lib.Any2PixLM, cfg)
-    return _build_llama_like(m, m.llama, tree, tree["llama"], device, dtype)
+    return _build_llama_like(m, m.llama, tree, tree["llama"], device, dtype, trainable)
+
+
+def to_tree(module: nn.Module) -> Dict[str, Any]:
+    """A float LLM's parameters as a numpy tree in the JAX layout, the
+    inverse of `load_tree` for linears (`w` input-major, `b`), embeddings
+    (`w`) and free parameters such as RMSNorm gains (`g`)."""
+
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    if isinstance(module, Q.QLinear):
+        raise TypeError("to_tree maps float modules only")
+    if isinstance(module, nn.Linear):
+        out = {"w": arr(module.weight).T.copy()}
+        if module.bias is not None:
+            out["b"] = arr(module.bias)
+        return out
+    if isinstance(module, nn.Embedding):
+        return {"w": arr(module.weight)}
+    out = {n: arr(p) for n, p in module.named_parameters(recurse=False)}
+    for n, child in module.named_children():
+        sub = to_tree(child)
+        if sub:
+            out[n] = sub
+    return out
 
 
 def to_numpy(tree: Any) -> Any:

@@ -11,7 +11,11 @@
 //     in float32 (the backward reads it);
 //   * causal masking aligned at the end: row i sees keys <= i + Sk - Sq;
 //     key tiles past the last visible key of a block are never loaded;
-//   * ragged tails masked by bounds checks, so the caller pads nothing.
+//   * ragged tails masked by bounds checks, so the caller pads nothing;
+//   * an optional int32 kv_len (B,): row b's keys at or past kv_len[b] are
+//     masked and its key tiles stop there. With a causal mask this is the
+//     collator's right-padding mask of a training batch (the JAX package
+//     takes such calls through its masked XLA path); nullptr masks at Sk.
 //
 // What bounds it here: at the UNet's shapes ((2,10,4096,64) bf16) the work
 // is 86 GFLOP against 21 MB of traffic, ~4000 FLOP/byte, far above the
@@ -60,34 +64,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kChunk = 16;  // keys per online-softmax update
-constexpr float kNegInf = -1e30f;
 
 struct Strides {
   int64_t qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int TPR, int DT>
+// kKvLen as for the tensor-core kernel below.
+template <typename T, int TPR, int DT, bool kKvLen>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int Sq, int Sk, int D,
-                     Strides st, float scale, int causal) {
+                     float* __restrict__ lse, const int* __restrict__ kv_len, int H,
+                     int Sq, int Sk, int D, Strides st, float scale, int causal) {
   constexpr int BM = kThreads / TPR;  // query rows per block
   constexpr int BN = 64 / TPR;        // keys per shared-memory tile
   constexpr int SEG = DT + 4;         // padded per-thread segment
@@ -106,6 +100,7 @@ __global__ void __launch_bounds__(kThreads)
   const bool row_ok = row < Sq;
   const int offset = Sk - Sq;  // causal alignment at the end
   const int row_lim = row + offset;
+  const int skb = visible_keys(kKvLen ? kv_len : nullptr, b, Sk);  // the key tail past skb is masked
 
   const T* qp = q + b * st.qb + h * st.qh + (int64_t)(row_ok ? row : 0) * st.qs;
   const T* kp = k + b * st.kb + h * st.kh;
@@ -122,11 +117,11 @@ __global__ void __launch_bounds__(kThreads)
   float m = kNegInf;
   float l = 0.f;
 
-  int kend = Sk;
+  int kend = skb;
   if (causal) {
     // last real row of the block bounds the keys any row of it can see
     const int last = min((int)(blockIdx.x + 1) * BM, Sq) - 1;
-    kend = max(0, min(Sk, last + offset + 1));
+    kend = max(0, min(skb, last + offset + 1));
   }
 
   for (int kt = 0; kt < kend; kt += BN) {
@@ -163,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
           dot += __shfl_xor_sync(0xffffffffu, dot, w);
         }
         const int col = kt + c0 + j;
-        const bool valid = col < Sk && (!causal || col <= row_lim);
+        const bool valid = col < skb && (!causal || col <= row_lim);
         s[j] = valid ? dot * scale : kNegInf;
         cmax = fmaxf(cmax, s[j]);
       }
@@ -218,7 +213,6 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kMmaRows = 64;  // query rows per block
 constexpr int kMmaKeys = 64;  // keys per shared tile
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxGrid = 256;  // K3: g <= 256, so the bias rows fit in shared memory
 
 // What the tensor-core kernel adds to a scaled logit. `stage` fills the
@@ -270,31 +264,16 @@ struct RelPos2dBias {  // K3
   }
 };
 
-template <typename T>
-struct MmaOps;
-
-template <>
-struct MmaOps<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-template <typename T, int D, typename Bias>
+// kKvLen: the kv_len mask is compiled in only where a caller passes it,
+// so the calls without it (every inference path) run the code they ran
+// before it existed: with the bound read at run time, K1 took 6.6 % longer
+// at (2,10,4096,64) bf16 on an H100 (PERF.md).
+template <typename T, int D, typename Bias, bool kKvLen>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
-                         float* __restrict__ lse, int H, int Sq, int Sk,
-                         Strides st, float scale, int causal, Bias bias) {
+                         float* __restrict__ lse, const int* __restrict__ kv_len, int H,
+                         int Sq, int Sk, Strides st, float scale, int causal, Bias bias) {
   static_assert(D % 16 == 0 && D <= 128, "mma path takes D = 16..128, step 16");
   constexpr int KS = D + 8;          // padded K row (elements)
   constexpr int VS = kMmaKeys + 8;   // padded transposed-V row (elements)
@@ -318,6 +297,7 @@ __global__ void __launch_bounds__(kThreads)
   const int rows[2] = {row0 + g, row0 + g + 8};
   const int lrows[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows within the block
   const int offset = Sk - Sq;
+  const int skb = visible_keys(kKvLen ? kv_len : nullptr, b, Sk);  // the key tail past skb is masked
   bias.stage(bias_s, bh, blk_row0, tid);
 
   const T* qp = q + b * st.qb + h * st.qh;
@@ -347,10 +327,10 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // per-thread partial sums, reduced over the quad at the end
 
-  int kend = Sk;
+  int kend = skb;
   if (causal) {
     const int last = min((int)(blockIdx.x + 1) * kMmaRows, Sq) - 1;
-    kend = max(0, min(Sk, last + offset + 1));
+    kend = max(0, min(skb, last + offset + 1));
   }
 
   for (int kt = 0; kt < kend; kt += kMmaKeys) {
@@ -406,7 +386,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int e = 2 * r + c;
-          const bool valid = col < Sk && (!causal || col <= rows[r] + offset);
+          const bool valid = col < skb && (!causal || col <= rows[r] + offset);
           const float logit = bias.add(s[j][e] * scale, bias_s, lrows[r], bc);
           s[j][e] = valid ? logit : kNegInf;
           mx[r] = fmaxf(mx[r], s[j][e]);
@@ -478,20 +458,21 @@ __global__ void __launch_bounds__(kThreads)
 
 // `smem` bytes of dynamic shared memory for the bias; the kernel's limit
 // is raised first, since with the static tiles it may pass 48 KB.
-template <typename T, int D, typename Bias = NoBias>
+template <typename T, int D, typename Bias = NoBias, bool KvLen = false>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int Sq, int Sk,
+                       float* lse, const int* kv_len, int B, int H, int Sq, int Sk,
                        const Strides& st, float scale, int causal,
                        cudaStream_t stream, const Bias& bias = Bias{}, size_t smem = 0) {
   if (smem > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<T, D, Bias>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_mma_kernel<T, D, Bias, KvLen>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((Sq + kMmaRows - 1) / kMmaRows, B * H);
-  flash_fwd_mma_kernel<T, D, Bias><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_mma_kernel<T, D, Bias, KvLen><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, st, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, kv_len, H, Sq, Sk, st, scale,
       causal, bias);
   return cudaGetLastError();
 }
@@ -509,52 +490,68 @@ bool mma_aligned(const void* q, const void* k, const void* v, const void* o,
 
 template <typename T>
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int B, int H, int Sq, int Sk, int D,
+                         float* lse, const int* kv_len, int B, int H, int Sq, int Sk, int D,
                          const Strides& st, float scale, int causal,
                          cudaStream_t stream, bool* taken) {
   *taken = (D == 64 || D == 80 || D == 128) && mma_aligned(q, k, v, o, st);
   if (!*taken) return cudaSuccess;
+  if (kv_len != nullptr) {
+    switch (D) {
+      case 64: return launch_mma<T, 64, NoBias, true>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, st, scale, causal, stream);
+      case 80: return launch_mma<T, 80, NoBias, true>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, st, scale, causal, stream);
+      default: return launch_mma<T, 128, NoBias, true>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, st, scale, causal, stream);
+    }
+  }
   switch (D) {
-    case 64: return launch_mma<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, st, scale, causal, stream);
-    case 80: return launch_mma<T, 80>(q, k, v, o, lse, B, H, Sq, Sk, st, scale, causal, stream);
-    default: return launch_mma<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, st, scale, causal, stream);
+    case 64: return launch_mma<T, 64>(q, k, v, o, lse, nullptr, B, H, Sq, Sk, st, scale, causal, stream);
+    case 80: return launch_mma<T, 80>(q, k, v, o, lse, nullptr, B, H, Sq, Sk, st, scale, causal, stream);
+    default: return launch_mma<T, 128>(q, k, v, o, lse, nullptr, B, H, Sq, Sk, st, scale, causal, stream);
   }
 }
 
 template <typename T, int TPR, int DT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int Sq, int Sk, int D,
+                   float* lse, const int* kv_len, int B, int H, int Sq, int Sk, int D,
                    const Strides& st, float scale, int causal,
                    cudaStream_t stream) {
   constexpr int BM = kThreads / TPR;
   const dim3 grid((Sq + BM - 1) / BM, B * H);
-  flash_fwd_kernel<T, TPR, DT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, D, st,
-      scale, causal);
+  if (kv_len != nullptr) {
+    flash_fwd_kernel<T, TPR, DT, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, kv_len, H, Sq, Sk, D, st,
+        scale, causal);
+  } else {
+    flash_fwd_kernel<T, TPR, DT, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, nullptr, H, Sq, Sk, D, st,
+        scale, causal);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int B, int H, int Sq, int Sk, int D,
+                     float* lse, const int* kv_len, int B, int H, int Sq, int Sk, int D,
                      const Strides& st, float scale, int causal,
                      cudaStream_t stream) {
-  if (D <= 16) return launch<T, 1, 16>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, stream);
-  if (D <= 32) return launch<T, 1, 32>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, stream);
-  if (D <= 64) return launch<T, 1, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, stream);
-  if (D <= 80) return launch<T, 2, 40>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, stream);
-  if (D <= 128) return launch<T, 2, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, stream);
-  if (D <= 256) return launch<T, 4, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, stream);
+  if (D <= 16) return launch<T, 1, 16>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, stream);
+  if (D <= 32) return launch<T, 1, 32>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, stream);
+  if (D <= 64) return launch<T, 1, 64>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, stream);
+  if (D <= 80) return launch<T, 2, 40>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, stream);
+  if (D <= 128) return launch<T, 2, 64>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, stream);
+  if (D <= 256) return launch<T, 4, 64>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Strides are in elements.
+// dtype: 0 float32, 1 bfloat16. Strides are in elements. lse (float32,
+// (B*H, Sq)) and kv_len (int32, (B,)) may be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ia2p_flash_fwd(int dtype, const void* q, const void* k,
-                              const void* v, void* o, float* lse, int B, int H,
+                              const void* v, void* o, float* lse, const int* kv_len,
+                              int B, int H,
                               int Sq, int Sk, int D, int64_t qb, int64_t qh,
                               int64_t qs, int64_t kb, int64_t kh, int64_t ks,
                               int64_t vb, int64_t vh, int64_t vs, int64_t ob,
@@ -566,10 +563,13 @@ extern "C" int ia2p_flash_fwd(int dtype, const void* q, const void* k,
   cudaError_t err = cudaSuccess;
   switch (dtype) {
     case 0:
-      return dispatch<float>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, s);
+      return dispatch<float>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, s);
     case 1:
-      err = dispatch_mma<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, s, &taken);
-      return taken ? err : dispatch<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal, s);
+      err = dispatch_mma<__nv_bfloat16>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale,
+                                        causal, s, &taken);
+      return taken ? err
+                   : dispatch<__nv_bfloat16>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale,
+                                             causal, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -594,9 +594,9 @@ extern "C" int ia2p_flash_relpos2d(const void* q, const void* k, const void* v,
   const size_t smem = RelPos2dBias::smem_bytes(G);
   switch (D) {
     case 64:
-      return launch_mma<__nv_bfloat16, 64>(q, k, v, o, nullptr, B, H, N, N, st, scale, 0, s, bias, smem);
+      return launch_mma<__nv_bfloat16, 64>(q, k, v, o, nullptr, nullptr, B, H, N, N, st, scale, 0, s, bias, smem);
     case 80:
-      return launch_mma<__nv_bfloat16, 80>(q, k, v, o, nullptr, B, H, N, N, st, scale, 0, s, bias, smem);
+      return launch_mma<__nv_bfloat16, 80>(q, k, v, o, nullptr, nullptr, B, H, N, N, st, scale, 0, s, bias, smem);
     default:
       return cudaErrorInvalidValue;
   }

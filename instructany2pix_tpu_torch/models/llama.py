@@ -15,15 +15,32 @@ The KV cache is preallocated for the whole generation and updated in place:
 length advanced. Attention against the cache is masked against the padded
 buffer (`_decode_mask`) and takes the plain path, as the JAX package forces
 `impl="xla"` there.
+
+Training (`forward` without a cache, with the collator's right-padding
+`attention_mask`): the 2-D mask is turned into per-row key counts
+(`kv_len`) once per forward, after one host check that every row is a
+prefix of ones, and each layer's causal attention goes to the
+differentiable flash path (K1 forward, K4a/K4b backward on the card). Any
+other mask keeps the plain masked path. With `cfg.remat` each decoder layer
+is checkpointed (`torch.utils.checkpoint`, non-reentrant): `remat_policy`
+"full" recomputes the whole layer in the backward, "dots" saves the outputs
+of the linear projections' matrix products (`aten.mm`/`aten.addmm`, the
+dots without batch dimensions) and recomputes attention and the
+elementwise work, the counterpart of JAX's
+`dots_with_no_batch_dims_saveable`. The JAX package's `stack_layers` and
+`lax.scan` over layers shrink its compiled program; eager PyTorch compiles
+nothing, so they have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt_lib
 
 from ..ops import quant as Q
 from ..ops.attention import dot_product_attention
@@ -41,6 +58,8 @@ class LlamaConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     rms_eps: float = 1e-6  # Vicuna-7B (Llama-1) ships 1e-6
+    remat: bool = False  # checkpoint each decoder layer in the no-cache forward
+    remat_policy: str = "full"  # "full" recomputes everything; "dots" saves matmul outputs
 
     @property
     def head_dim(self) -> int:
@@ -186,9 +205,40 @@ def _decode_mask(b: int, s: int, max_len: int, cache_len: int, prefix_pad=None, 
     return valid
 
 
-def _block(p: LlamaLayer, x, cfg: LlamaConfig, mask, rope_cs, cache_kv=None, cache_len=0):
+def prefix_lengths(mask: torch.Tensor) -> Optional[torch.Tensor]:
+    """int32 (B,) key counts when every row of a 2-D mask is a prefix of
+    ones of length >= 1 (right padding, as the training collator builds
+    it), else None. One host synchronization."""
+    if mask.dim() != 2:
+        return None
+    m = mask.bool()
+    n = m.sum(1)
+    prefix = torch.arange(m.shape[1], device=m.device)[None, :] < n[:, None]
+    if not bool(((m == prefix).all() & (n >= 1).all()).item()):
+        return None
+    return n.to(torch.int32)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    return (ckpt_lib.CheckpointPolicy.MUST_SAVE if op in saved
+            else ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """`fn` under activation checkpointing with the JAX package's policies."""
+    if policy == "full":
+        return functools.partial(ckpt_lib.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        context = functools.partial(ckpt_lib.create_selective_checkpoint_contexts, _dots_policy)
+        return functools.partial(ckpt_lib.checkpoint, fn, use_reentrant=False, context_fn=context)
+    raise ValueError(f"remat_policy={policy!r}: 'full' or 'dots'")
+
+
+def _block(p: LlamaLayer, x, cfg: LlamaConfig, mask, rope_cs, cache_kv=None, cache_len=0,
+           kv_len=None):
     """One decoder layer; with `cache_kv` this call's keys and values are
-    written into it in place."""
+    written into it in place. `kv_len` stands for a right-padding mask."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     in_norm = (p.input_norm.g, cfg.rms_eps)
@@ -211,7 +261,7 @@ def _block(p: LlamaLayer, x, cfg: LlamaConfig, mask, rope_cs, cache_kv=None, cac
         cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
         o = dot_product_attention(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask, impl="xla")
     else:
-        o = dot_product_attention(q, k, v, mask=mask, causal=True)
+        o = dot_product_attention(q, k, v, mask=mask, causal=True, kv_len=kv_len)
     x = L.linear(p.o, o.reshape(b, s, cfg.num_heads * hd), residual=x)
     post_norm = (p.post_norm.g, cfg.rms_eps)
     if hasattr(p, "gate_up"):
@@ -252,13 +302,22 @@ def forward(
             positions = torch.clamp(positions - pp, min=0)
         positions = positions.expand(b, s)
     rope_cs = _rope_tables(positions, cfg.head_dim // 2, cfg.rope_theta)
-    mask = attention_mask
+    mask, kv_len = attention_mask, None
     if cache is not None:
         mask = _decode_mask(b, s, cache.k.shape[2], cache.length, prefix_pad, dev)
+    elif mask is not None:
+        kv_len = prefix_lengths(mask.to(dev))
+        if kv_len is not None:
+            mask = None
     for i in range(cfg.num_layers):
-        kv = (cache.k[i], cache.v[i]) if cache is not None else None
-        x = _block(getattr(params, f"layer_{i}"), x, cfg, mask, rope_cs, kv,
-                   cache.length if cache is not None else 0)
+        layer = getattr(params, f"layer_{i}")
+        if cache is not None:
+            x = _block(layer, x, cfg, mask, rope_cs, (cache.k[i], cache.v[i]), cache.length)
+        elif cfg.remat and torch.is_grad_enabled():
+            x = _remat(functools.partial(_block, layer, cfg=cfg, mask=mask, rope_cs=rope_cs,
+                                         kv_len=kv_len), cfg.remat_policy)(x)
+        else:
+            x = _block(layer, x, cfg, mask, rope_cs, kv_len=kv_len)
     hidden_norm = L.rms_norm(params.final_norm.g, x, cfg.rms_eps)
     logits = L.linear(params.lm_head, hidden_norm)
     out = {"logits": logits, "hidden": x, "hidden_norm": hidden_norm}

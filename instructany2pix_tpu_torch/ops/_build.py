@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `build/kernels/<name>-<hash>.so` at the root of the checkout (a
-directory git ignores). The hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Nothing is
+directory git ignores). The hash covers the source, the `csrc/` headers it
+includes (`#include "..."`) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. Nothing is
 compiled when a module is imported; `load` compiles on the first launch
 and `build` compiles several sources in parallel, one `nvcc` each.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -41,11 +44,26 @@ def _nvcc() -> str:
     return found
 
 
+def sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and the `csrc/` headers it includes."""
+    src = CSRC / f"{name}.cu"
+    return [src] + [CSRC / inc for inc in _INCLUDE.findall(src.read_text())]
+
+
 def artifact(name: str) -> Path:
     """Path of the shared library for `csrc/<name>.cu` at its current hash."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{h[:16]}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(src: Path, out: Path) -> List[str]:
+    """The nvcc command line that builds `src` into the library `out`;
+    `csrc/` is on the include path, so a copy of a source elsewhere still
+    finds its headers."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
@@ -63,10 +81,8 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         log = so.with_suffix(".log").open("w")
         try:
-            proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=log, stderr=subprocess.STDOUT,
-            )
+            proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", tmp),
+                                    stdout=log, stderr=subprocess.STDOUT)
         finally:
             log.close()
         procs.append((name, so, tmp, proc))

@@ -1,5 +1,5 @@
-"""Attention dispatch for the port: K1 for unmasked attention, plain math
-for the rest.
+"""Attention dispatch for the port: K1 (with K4 as its backward) for
+unmasked and right-padded attention, plain math for the rest.
 
 Counterpart of the JAX package's `ops/attention.py::dot_product_attention`
 with the same (B, S, H, D) layout, default scale, grouped-query head
@@ -8,6 +8,12 @@ end. Routing on the H100:
   * every call with no mask and head_dim <= 256 goes to K1 (UNet self,
     text cross and IP attention; on a CPU tensor K1's wrapper runs its
     plain version);
+  * so does a call with `kv_len` (int32 (B,): row b sees its first
+    kv_len[b] keys) and no mask: the Llama training forward, whose
+    collator mask is right padding under a causal mask. `flash_attention`
+    is differentiable, with K4a and K4b as its backward on the card. The
+    JAX package sends such calls to XLA math as a mask; the function is
+    the same (its plain path here builds that mask from kv_len);
   * masked calls, head_dim > 256 (the VAE's single-head d=512 attention)
     and `impl="xla"` callers (the CLIP text towers) take stock PyTorch math,
     as they take XLA math in the JAX package.
@@ -33,11 +39,13 @@ def dot_product_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     impl: str = "auto",
+    kv_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention over (B, S, H, D) tensors; returns (B, S, H, D).
 
     impl: "auto" routes as the module docstring says; "xla" forces plain
-    math."""
+    math. `kv_len` (int32 (B,), values >= 1, no `mask` with it) masks row
+    b's keys at or past kv_len[b]."""
     if impl not in ("auto", "xla"):
         raise ValueError(f"impl={impl!r}")
     b, sq, h, d = q.shape
@@ -50,6 +58,12 @@ def dot_product_attention(
         v = v.repeat_interleave(rep, dim=2)
 
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if kv_len is not None:
+        if mask is not None:
+            raise ValueError("pass mask or kv_len, not both")
+        if impl == "auto" and d <= MAX_HEAD_DIM:
+            return flash_attention(qt, kt, vt, causal, scale, kv_len=kv_len).transpose(1, 2)
+        mask = torch.arange(sk, device=q.device)[None, :] < kv_len.to(q.device)[:, None]
     if impl == "auto" and mask is None and d <= MAX_HEAD_DIM:
         return flash_attention(qt, kt, vt, causal, scale).transpose(1, 2)
 

@@ -1,20 +1,32 @@
-"""Flash attention forward (K1) and its SAM rel-pos variant (K3): the CUDA
-kernels and their plain versions.
+"""Flash attention: the forward (K1) with its backward (K4a, K4b) as one
+autograd Function, and the SAM rel-pos variant (K3); the CUDA kernels and
+their plain versions.
 
 `flash_attention` is the counterpart of the JAX package's public
-`flash_attention` (forward only). On a CUDA tensor it launches the
-hand-written Hopper kernel in `csrc/flash_fwd.cu`; on a CPU tensor it runs
-`_reference_attention`, the plain PyTorch version of the same function.
-`flash_attention_relpos2d` is the counterpart of the JAX function of that
-name: K1's tensor-core kernel with a bias policy (`ia2p_flash_relpos2d`
-in `csrc/flash_fwd.cu`) on a CUDA tensor, `_reference_relpos2d` on a CPU
-tensor. There is no fallback from one to the other: a CUDA call the
-kernel does not take raises.
+`flash_attention` and its `custom_vjp`. On a CUDA tensor the forward
+launches K1 (`csrc/flash_fwd.cu`) and, when an input needs a gradient, the
+backward launches K4a (dq) and K4b (dk, dv) from `csrc/flash_bwd.cu` after
+computing delta = rowsum(dO * O) in float32, as the JAX wrapper does
+outside Pallas. On a CPU tensor both directions run the plain versions:
+`_reference_attention` forward, `flash_bwd_reference` (the blocked
+backward of `_flash_bwd`) backward. `_bwd_recompute` is the counterpart of
+the JAX recompute backward, kept for comparison. An optional int32
+`kv_len` (B,) masks row b's keys at or past kv_len[b]: with `causal` it is
+the training collator's right-padding mask, the function the JAX package
+computes on its masked XLA path.
 
-Layout: (B, H, S, D) like the JAX function. Any strides are accepted as
-long as the last dimension is contiguous, so callers holding (B, S, H, D)
-tensors pass `x.transpose(1, 2)` without a copy; the output has q's
-strides.
+`flash_attention_relpos2d` is the counterpart of the JAX function of that
+name, forward only: K1's tensor-core kernel with a bias policy
+(`ia2p_flash_relpos2d` in `csrc/flash_fwd.cu`) on a CUDA tensor,
+`_reference_relpos2d` on a CPU tensor. Like the JAX function it has no
+gradient, so on the card it refuses an input that requires one while grad
+mode is on rather than return a tensor that ends the graph.
+
+There is no fallback from a kernel to its plain version: a CUDA call the
+kernel does not take raises. Layout: (B, H, S, D) like the JAX functions.
+Any strides are accepted as long as the last dimension is contiguous, so
+callers holding (B, S, H, D) tensors pass `x.transpose(1, 2)` without a
+copy; outputs have their input's strides.
 """
 
 from __future__ import annotations
@@ -26,23 +38,97 @@ import torch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+BWD_BLOCK_Q = 1024  # query rows per block of the plain backward
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _reference_attention(q, k, v, causal, scale, return_lse=False):
-    """Plain version: float32 logits, softmax, p cast to v's dtype for P.V
-    (the JAX `_reference_attention`). Also returns the per-row logsumexp
-    when asked, as the kernel writes it."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+def _wide(x):
+    """x in float32, or in float64 when it is float64 (the plain versions'
+    accumulation type; float64 keeps `gradcheck` meaningful)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _visible(sq, sk, causal, kv_len, device):
+    """Bool mask of the keys each query may see, broadcastable to
+    (B, H, Sq, Sk): the end-aligned causal rule and the kv_len tail."""
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
     if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
-        mask = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(sk - sq)
-        s = s.masked_fill(~mask, NEG_INF)
+        mask = mask.tril(sk - sq)
+    if kv_len is not None:
+        col = torch.arange(sk, device=device)
+        mask = mask & (col < kv_len.to(device).reshape(-1, 1, 1, 1))
+    return mask
+
+
+def _reference_attention(q, k, v, causal, scale, return_lse=False, kv_len=None):
+    """Plain version: float32 logits, softmax, p cast to v's dtype for P.V
+    (the JAX `_reference_attention`; with kv_len, its masked path). Also
+    returns the per-row logsumexp when asked, as the kernel writes it."""
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
+    if causal or kv_len is not None:
+        s = s.masked_fill(~_visible(s.shape[-2], s.shape[-1], causal, kv_len, s.device), NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype), v).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1)
     return o
+
+
+def _bwd_recompute(q, k, v, o, g, causal, scale, kv_len=None):
+    """The JAX `_bwd_recompute`: the whole backward in float32 from the
+    saved (q, k, v, o), softmax recomputed, (B, H, Sq, Sk) logits
+    materialized."""
+    qf, kf, vf, gf = (_wide(x) for x in (q, k, v, g))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal or kv_len is not None:
+        s = s.masked_fill(~_visible(s.shape[-2], s.shape[-1], causal, kv_len, s.device), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (gf * _wide(o)).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_delta(g, o):
+    """delta = rowsum(dO * O) in float32, (B, H, Sq): what K4 reads beside
+    the logsumexp."""
+    return (_wide(g) * _wide(o)).sum(-1)
+
+
+def flash_bwd_reference(q, k, v, o, lse, g, causal, scale, kv_len=None, delta=None,
+                        block_q=BWD_BLOCK_Q):
+    """Plain version of K4a and K4b, blocked over query rows like
+    `_flash_bwd`: p = exp(s - lse) where visible (else 0), dp = g.v^T,
+    ds = p (dp - delta) scale, and dq = ds.k, dk = ds^T.q, dv = p^T.g with
+    ds and p rounded to the operand dtype before the products, float32
+    accumulation, outputs in the input dtype. Only a (B, H, block_q, Sk)
+    slab of logits exists at a time."""
+    dt = q.dtype
+    sq, sk = q.shape[2], k.shape[2]
+    if delta is None:
+        delta = flash_delta(g, o)
+    kf, vf = _wide(k), _wide(v)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dq = torch.empty_like(q)
+    vis = _visible(sq, sk, causal, kv_len, q.device)
+    for r0 in range(0, sq, block_q):
+        r1 = min(sq, r0 + block_q)
+        qb, gb = _wide(q[:, :, r0:r1]), _wide(g[:, :, r0:r1])
+        s = torch.matmul(qb, kf.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, :, r0:r1, None]).masked_fill_(~vis[..., r0:r1, :], 0.0)
+        del s
+        dp = torch.matmul(gb, vf.transpose(-1, -2))
+        ds = p * (dp - delta[:, :, r0:r1, None]) * scale
+        del dp
+        ds = _wide(ds.to(dt))
+        dq[:, :, r0:r1] = torch.matmul(ds, kf).to(dt)
+        dk += torch.matmul(ds.transpose(-1, -2), qb)
+        dv += torch.matmul(_wide(p.to(dt)).transpose(-1, -2), gb)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v):
@@ -67,6 +153,17 @@ def _check(q, k, v):
             raise ValueError(f"flash_attention: {name} needs a contiguous last dim")
 
 
+def _check_kv_len(kv_len, q):
+    if kv_len is None:
+        return None
+    if (kv_len.device != q.device or kv_len.dtype != torch.int32
+            or tuple(kv_len.shape) != (q.shape[0],) or not kv_len.is_contiguous()):
+        raise ValueError(f"flash_attention: kv_len must be a contiguous int32 ({q.shape[0]},) "
+                         f"tensor on {q.device}, got {kv_len.dtype} {tuple(kv_len.shape)} on "
+                         f"{kv_len.device}")
+    return kv_len.data_ptr()
+
+
 def _lib():
     from . import _build
 
@@ -74,23 +171,25 @@ def _lib():
     fn = lib.ia2p_flash_fwd
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
             + [ctypes.c_int64] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False):
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False, kv_len=None):
     """Launch K1 on PyTorch's current stream. Outputs come from
     `torch.empty`; the kernel allocates nothing. Raises on input the kernel
-    does not take and on a refused launch."""
+    does not take and on a refused launch. The output carries no gradient:
+    `flash_attention` is the differentiable entry point."""
     _check(q, k, v)
+    kv_ptr = _check_kv_len(kv_len, q)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
-    if sq == 0:
+    if sq == 0 or b * h == 0:
         return (o, lse) if return_lse else o
     fn = _lib()
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
@@ -98,7 +197,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr() if lse is not None else None,
+            o.data_ptr(), lse.data_ptr() if lse is not None else None, kv_ptr,
             b, h, sq, sk, d, *strides, float(scale), int(bool(causal)), stream,
         )
     if rc != 0:
@@ -110,6 +209,115 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
 flash_fwd_cuda.launches = 0  # K1 launches in this process
 
 
+def _check_bwd(q, k, v, g, lse, delta):
+    _check(q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device or g.stride(-1) != 1:
+        raise ValueError(f"flash_attention backward: dO {g.dtype} {tuple(g.shape)} for q "
+                         f"{q.dtype} {tuple(q.shape)} (a unit last stride is needed)")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != tuple(q.shape[:3])
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_attention backward: {name} must be contiguous float32 "
+                             f"{tuple(q.shape[:3])} on {q.device}")
+
+
+def _bwd_lib(name):
+    from . import _build
+
+    fn = getattr(_build.load("flash_bwd"), name)
+    if fn.argtypes is None:
+        n_out = 1 if name == "ia2p_flash_bwd_dq" else 2
+        fn.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 5
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(name, outs, q, k, v, g, lse, delta, causal, scale, kv_len) -> bool:
+    """Fill `outs` with K4a or K4b; returns whether a kernel was launched
+    (with no query or key rows the gradients are zeros and nothing is)."""
+    _check_bwd(q, k, v, g, lse, delta)
+    kv_ptr = _check_kv_len(kv_len, q)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if b * h == 0 or sq == 0 or sk == 0:
+        for t in outs:
+            t.zero_()
+        return False
+    fn = _bwd_lib(name)
+    strides = (ctypes.c_int64 * (3 * (4 + len(outs))))(
+        *[s for t in (q, k, v, g, *outs) for s in t.stride()[:3]])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), kv_ptr, *[t.data_ptr() for t in outs],
+                b, h, sq, sk, d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+                int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward: {name} launch failed with CUDA error {rc}")
+    return True
+
+
+def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_len=None):
+    """Launch K4a on PyTorch's current stream: dq from the saved lse and
+    delta (float32, (B, H, Sq), contiguous). dq comes from
+    `torch.empty_like(q)`. Raises on input the kernel does not take and on
+    a refused launch."""
+    dq = torch.empty_like(q)
+    if _launch_bwd("ia2p_flash_bwd_dq", (dq,), q, k, v, g, lse, delta, causal, scale, kv_len):
+        flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0  # K4a launches in this process
+
+
+def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_len=None):
+    """Launch K4b on PyTorch's current stream: (dk, dv), from
+    `torch.empty_like(k)` and `torch.empty_like(v)`. As K4a otherwise."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if _launch_bwd("ia2p_flash_bwd_dkv", (dk, dv), q, k, v, g, lse, delta, causal, scale, kv_len):
+        flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0  # K4b launches in this process
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward and K4 backward (their plain versions on the CPU), the
+    counterpart of the JAX `custom_vjp`. (q, k, v, o, lse) are saved only
+    when an input needs a gradient; lse has none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, scale):
+        if q.device.type == "cpu":
+            o, lse = _reference_attention(q, k, v, causal, scale, True, kv_len)
+        else:
+            o, lse = flash_fwd_cuda(q, k, v, causal, scale, True, kv_len)
+        ctx.mark_non_differentiable(lse)
+        ctx.causal, ctx.scale = causal, scale
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, o, lse, kv_len)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, o, lse, kv_len = ctx.saved_tensors
+        g = g.to(q.dtype)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_bwd_reference(q, k, v, o, lse, g, ctx.causal, ctx.scale, kv_len)
+        else:
+            if g.stride(-1) != 1:
+                g = g.contiguous()
+            delta = flash_delta(g, o)
+            dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, ctx.causal, ctx.scale, kv_len)
+            dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, ctx.causal, ctx.scale, kv_len)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -117,13 +325,19 @@ def flash_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     return_lse: bool = False,
+    kv_len: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Fused attention over (B, H, S, D). With `return_lse` also returns
-    the float32 (B, H, Sq) logsumexp."""
+    """Fused attention over (B, H, S, D), differentiable in q, k and v.
+    With `return_lse` also returns the float32 (B, H, Sq) logsumexp;
+    `kv_len` (int32 (B,), every value >= 1) masks row b's keys at or past
+    kv_len[b]."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, lse = _FlashAttention.apply(q, k, v, kv_len, causal, scale)
+        return (o, lse) if return_lse else o
     if q.device.type == "cpu":
-        return _reference_attention(q, k, v, causal, scale, return_lse)
-    return flash_fwd_cuda(q, k, v, causal, scale, return_lse)
+        return _reference_attention(q, k, v, causal, scale, return_lse, kv_len)
+    return flash_fwd_cuda(q, k, v, causal, scale, return_lse, kv_len)
 
 
 # --------------------------------------------------------------------------
@@ -190,8 +404,12 @@ def _relpos2d_lib():
 
 def flash_relpos2d_cuda(q, k, v, bh, bw, scale: float):
     """Launch K3 on PyTorch's current stream; the output comes from
-    `torch.empty_like(q)`. Raises on input the kernel does not take and on
-    a refused launch."""
+    `torch.empty_like(q)`. Raises on input the kernel does not take, on an
+    input that requires a gradient while grad mode is on (K3 has no
+    backward), and on a refused launch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bh, bw)):
+        raise RuntimeError("flash_attention_relpos2d: the CUDA kernel has no backward; call it "
+                           "under torch.no_grad() or on inputs that need no gradient")
     _check_relpos2d(q, k, v, bh, bw)
     b, h, n, d = q.shape
     o = torch.empty_like(q)

@@ -346,7 +346,14 @@ def _check(x2, q, norm_g, residual, swiglu):
 def qmv_cuda(x2, q, norm_g=None, norm_eps=1e-6, swiglu=False, residual=None):
     """Launch K2 on PyTorch's current stream for (M, K') rows. Outputs and
     scratch come from `torch.empty`; the kernel allocates nothing. Raises
-    on input the kernel does not take and on a refused launch."""
+    on input the kernel does not take and on a refused launch. K2 has no
+    backward (nor has the JAX kernel), so an input that requires a gradient
+    while grad mode is on is refused rather than given an output that
+    silently ends the autograd graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x2, norm_g, residual)):
+        raise RuntimeError("qmatmul: the CUDA kernel has no backward; call it under "
+                           "torch.no_grad() or on inputs that need no gradient")
     m, k, n, xk = _check(x2, q, norm_g, residual, swiglu)
     fmt = _fmt(q)
     group = _group_of(q) if fmt == "int4g" else 0

@@ -1,0 +1,266 @@
+"""The port's flash-attention gradient against the JAX package: the
+autograd Function (K1 forward, K4a/K4b backward; their plain versions on
+the CPU) against `jax.grad` through the Pallas kernels in interpret mode,
+`flash_bwd_reference` against `_flash_bwd(interpret=True)`, the kv_len path
+against the JAX masked XLA path, and `gradcheck` in float64. Also: the
+kernels without a backward (K2, K3) refuse inputs that need a gradient, and
+the build hashes the header K1 and K4 share. CPU, float32."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instructany2pix_tpu.ops.attention import dot_product_attention as j_dpa
+from instructany2pix_tpu.ops.flash_attention import (
+    _bwd_recompute as j_bwd_recompute,
+    _flash_bwd,
+    _flash_fwd,
+    flash_attention as j_flash,
+)
+from instructany2pix_tpu_torch.ops import _build
+from instructany2pix_tpu_torch.ops import flash_attention as fa
+from instructany2pix_tpu_torch.ops import quant as Q
+from instructany2pix_tpu_torch.ops.attention import dot_product_attention
+from torch_port_helpers import assert_close, randn, t
+
+# float32 on both sides, as tests/test_ops.py holds the JAX custom VJP
+# against XLA's gradient; the kernels sum in another order
+GRAD_TOL = 1e-4
+
+CASES = [
+    # (causal, sq, sk, d)
+    (False, 128, 128, 64),
+    (True, 128, 128, 64),
+    (False, 100, 77, 32),
+    (True, 64, 200, 128),
+    (False, 200, 64, 128),
+    (True, 130, 130, 32),
+]
+
+
+
+@pytest.fixture(autouse=True)
+def _grad_mode_on():
+    """Another test file turns grad mode off when it is imported, and pytest
+    imports every test file in each worker: these tests need it on."""
+    with torch.enable_grad():
+        yield
+
+
+def _inputs(seed, b, h, sq, sk, d):
+    return (randn(seed, b, h, sq, d), randn(seed + 1, b, h, sk, d), randn(seed + 2, b, h, sk, d),
+            randn(seed + 3, b, h, sq, d))
+
+
+def _port_grads(q, k, v, g, causal, scale, kv_len=None):
+    qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention(qt, kt, vt, causal, scale, kv_len=kv_len)
+    return o, torch.autograd.grad(o, (qt, kt, vt), t(g))
+
+
+@pytest.mark.parametrize("causal,sq,sk,d", CASES)
+def test_function_grads_match_jax_pallas_interpret(causal, sq, sk, d):
+    seed = 7 * sq + sk + d + int(causal)
+    q, k, v, g = _inputs(seed, 2, 2, sq, sk, d)
+    scale = d**-0.5
+
+    def loss(q, k, v):  # interpret=True makes the JAX VJP run _flash_bwd
+        return jnp.sum(j_flash(q, k, v, causal, scale, 128, 128, True) * g)
+
+    grads_j = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    o, grads = _port_grads(q, k, v, g, causal, scale)
+    o_j = j_flash(*(jnp.asarray(x) for x in (q, k, v)), causal, scale, 128, 128, True)
+    assert_close(o, o_j, GRAD_TOL, seed, what="o")
+    for name, a, b in zip(("dq", "dk", "dv"), grads, grads_j):
+        assert_close(a, b, GRAD_TOL, seed, what=name)
+
+
+@pytest.mark.parametrize("causal,sq,sk,d", CASES)
+def test_flash_bwd_reference_matches_pallas_bwd(causal, sq, sk, d):
+    """The plain blocked backward against `_flash_bwd` in interpret mode on
+    the same o and lse, with 128-row blocks so the JAX kernels walk several
+    blocks (the causal start block, padded tails)."""
+    seed = 11 * sq + sk + d + int(causal)
+    q, k, v, g = _inputs(seed, 1, 3, sq, sk, d)
+    scale = d**-0.5
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    o, lse = _flash_fwd(jq, jk, jv, causal, scale, 128, 128, interpret=True, return_lse=True)
+    ref = _flash_bwd(jq, jk, jv, o, lse, jg, causal, scale, 128, 128, interpret=True)
+    got = fa.flash_bwd_reference(t(q), t(k), t(v), t(o), t(lse), t(g), causal, scale,
+                                 block_q=64)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert_close(a, b, GRAD_TOL, seed, what=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_recompute_matches_jax(causal):
+    seed = 40 + int(causal)
+    q, k, v, g = _inputs(seed, 2, 2, 96, 96, 64)
+    scale = 0.125
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    o = j_flash(jq, jk, jv, causal, scale, 128, 128, True)
+    ref = j_bwd_recompute(jq, jk, jv, o, jnp.asarray(g), causal, scale)
+    got = fa._bwd_recompute(t(q), t(k), t(v), t(o), t(g), causal, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert_close(a, b, GRAD_TOL, seed, what=name)
+
+
+@pytest.mark.parametrize("s,kv,d", [(48, (48, 31, 1), 64), (70, (5, 70, 64), 32)])
+def test_kv_len_grads_match_jax_masked_path(s, kv, d):
+    """A right-padding mask under the causal rule: the port's router sends
+    kv_len to the differentiable flash path, the JAX router sends the mask
+    to XLA math; values and gradients agree, pad rows included."""
+    seed = s + d
+    b, h = len(kv), 2
+    q, k, v, g = (randn(seed + i, b, s, h, d) for i in range(4))
+    mask = np.arange(s)[None, :] < np.asarray(kv)[:, None]
+
+    def loss(q, k, v):
+        return jnp.sum(j_dpa(q, k, v, mask=jnp.asarray(mask), causal=True) * g)
+
+    jargs = tuple(jnp.asarray(x) for x in (q, k, v))
+    grads_j = jax.grad(loss, argnums=(0, 1, 2))(*jargs)
+    o_j = j_dpa(*jargs, mask=jnp.asarray(mask), causal=True)
+    qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
+    kv_len = torch.tensor(kv, dtype=torch.int32)
+    o = dot_product_attention(qt, kt, vt, causal=True, kv_len=kv_len)
+    grads = torch.autograd.grad(o, (qt, kt, vt), t(g))
+    assert_close(o, o_j, GRAD_TOL, seed, what="o")
+    for name, a, b_ in zip(("dq", "dk", "dv"), grads, grads_j):
+        assert_close(a, b_, GRAD_TOL, seed, what=name)
+    # the router's plain path for the same call builds the mask from kv_len
+    o_plain = dot_product_attention(qt, kt, vt, causal=True, kv_len=kv_len, impl="xla")
+    assert_close(o_plain, o_j, GRAD_TOL, seed, what="o (plain path)")
+
+
+@pytest.fixture
+def one_thread():
+    """gradcheck makes thousands of tiny float64 calls. Run them on one
+    intra-op thread: more threads only spin against the other pytest-xdist
+    workers (a gradcheck took 5.5 s alone and over 500 s in a loaded
+    6-worker run with 8 threads, 2.2 s alone with 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("causal,sq,sk,kv", [
+    (True, 24, 24, None), (False, 17, 29, None), (True, 12, 30, None), (True, 21, 21, (21, 9, 1)),
+])
+def test_function_gradcheck_float64(one_thread, causal, sq, sk, kv):
+    gen = torch.Generator().manual_seed(sq * 100 + sk)
+    b = len(kv) if kv else 2
+    q = torch.randn(b, 2, sq, 8, dtype=torch.float64, generator=gen, requires_grad=True)
+    k = torch.randn(b, 2, sk, 8, dtype=torch.float64, generator=gen, requires_grad=True)
+    v = torch.randn(b, 2, sk, 8, dtype=torch.float64, generator=gen, requires_grad=True)
+    kv_len = torch.tensor(kv, dtype=torch.int32) if kv else None
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal, 0.3, kv_len=kv_len), (q, k, v))
+
+
+def test_cpu_backward_is_plain_and_uncounted():
+    q, k, v, g = (t(x) for x in _inputs(3, 1, 2, 40, 40, 32))
+    before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+              fa.flash_bwd_dkv_cuda.launches)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    grads = torch.autograd.grad(fa.flash_attention(qr, kr, vr, True), (qr, kr, vr), g)
+    after = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+             fa.flash_bwd_dkv_cuda.launches)
+    assert after == before
+    o, lse = fa._reference_attention(q, k, v, True, 32**-0.5, return_lse=True)
+    ref = fa.flash_bwd_reference(q, k, v, o, lse, g, True, 32**-0.5)
+    for a, b in zip(grads, ref):
+        assert torch.equal(a, b)
+
+
+def test_no_grad_needed_takes_the_forward_only():
+    q = t(randn(0, 1, 2, 16, 32))
+    with torch.no_grad():
+        out = fa.flash_attention(q.requires_grad_(), q, q)
+    assert not out.requires_grad
+    assert torch.equal(out, fa._reference_attention(q, q, q, False, 32**-0.5))
+
+
+def test_k4_wrappers_reject_cpu_tensors():
+    q, k, v, g = (t(x) for x in _inputs(5, 1, 2, 16, 16, 32))
+    lse = torch.zeros(1, 2, 16)
+    for fn in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, k, v, g, lse, lse, True, 0.2)
+
+
+@pytest.mark.parametrize("b, sq, sk", [(1, 0, 16), (1, 16, 0), (0, 16, 16)])
+def test_empty_calls_launch_and_count_nothing(monkeypatch, b, sq, sk):
+    """With no query rows, no key rows or no (batch, head) pair, the K1, K4a
+    and K4b wrappers return empty or zero outputs, launch nothing and add
+    nothing to their counters. The device checks are lifted so that the
+    wrappers take CPU tensors; loading a library fails the test."""
+    def no_library(*_):
+        raise AssertionError("a kernel library was loaded for an empty call")
+
+    monkeypatch.setattr(fa, "_check", lambda *_: None)
+    monkeypatch.setattr(fa, "_check_bwd", lambda *_: None)
+    monkeypatch.setattr(fa, "_check_kv_len", lambda *_: None)
+    monkeypatch.setattr(fa, "_lib", no_library)
+    monkeypatch.setattr(fa, "_bwd_lib", no_library)
+    q, g = torch.ones(b, 2, sq, 32), torch.ones(b, 2, sq, 32)
+    k, v = torch.ones(b, 2, sk, 32), torch.ones(b, 2, sk, 32)
+    stats = torch.zeros(b, 2, sq)
+    counters = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    before = [c.launches for c in counters]
+    dq = fa.flash_bwd_dq_cuda(q, k, v, g, stats, stats, True, 0.2)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, g, stats, stats, True, 0.2)
+    if sq == 0 or b == 0:  # K1 launches with no keys: its rows are written
+        fa.flash_fwd_cuda(q, k, v, True, 0.2, return_lse=True)
+    assert [c.launches for c in counters] == before
+    for x, like in ((dq, q), (dk, k), (dv, v)):
+        assert x.shape == like.shape and not x.any()
+
+
+def test_kernels_without_backward_refuse_grad_inputs():
+    """K3 and K2 have no backward (nor have their JAX kernels): their CUDA
+    wrappers refuse an input that needs a gradient while grad mode is on,
+    before anything else; with grad mode off they go on to their usual
+    checks (here: a CPU tensor is not taken), and the CPU inference paths
+    are unchanged."""
+    q = t(randn(1, 1, 2, 16, 64)).requires_grad_()
+    bias = t(randn(2, 1, 2, 16, 4))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_relpos2d_cuda(q, q, q, bias, bias, 0.1)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fa.flash_relpos2d_cuda(q, q, q, bias, bias, 0.1)
+    with torch.no_grad():
+        out = fa.flash_attention_relpos2d(q, q, q, bias, bias, 0.1)
+    assert torch.equal(out, fa._reference_relpos2d(q.detach(), q.detach(), q.detach(), bias,
+                                                   bias, 0.1))
+
+    qw = Q.quantize_weight_int4_grouped(t(randn(3, 256, 128)))
+    x = t(randn(4, 2, 256)).requires_grad_()  # (M, K) rows
+    with pytest.raises(RuntimeError, match="no backward"):
+        Q.qmv_cuda(x, qw)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        Q.qmv_cuda(x, qw)
+    with torch.no_grad():
+        y = Q.qmatmul(x, qw)
+    assert torch.equal(y, Q._qmv_reference(x.detach(), qw, None, 1e-6, False, None))
+
+
+def test_build_hashes_included_headers(tmp_path, monkeypatch):
+    """K1 and K4 share csrc/flash_mma.cuh: editing it must give both new
+    libraries, and leave K2's alone."""
+    for name in ("flash_fwd.cu", "flash_bwd.cu", "flash_mma.cuh", "qmv.cu"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("flash_bwd")] == ["flash_bwd.cu", "flash_mma.cuh"]
+    before = {n: _build.artifact(n) for n in ("flash_fwd", "flash_bwd", "qmv")}
+    (tmp_path / "flash_mma.cuh").write_text((tmp_path / "flash_mma.cuh").read_text() + "\n// edit\n")
+    after = {n: _build.artifact(n) for n in ("flash_fwd", "flash_bwd", "qmv")}
+    assert after["flash_fwd"] != before["flash_fwd"]
+    assert after["flash_bwd"] != before["flash_bwd"]
+    assert after["qmv"] == before["qmv"]
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    cmd = _build.nvcc_command(tmp_path / "flash_bwd.cu", tmp_path / "x.so")
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path)
