@@ -9,10 +9,12 @@ printed only when every phase passed):
      source in instructany2pix_tpu_torch/csrc with nvcc, one process per
      source, all at once, and print the build time and ptxas report;
   2. K1 (flash-attention forward) against its plain PyTorch version on
-     the card, bf16 and fp32, at the shapes the SDXL path gives it plus
-     the ImageBind and Llama shapes, on contiguous inputs and on the
+     the card, bf16 and fp32, at the shapes the SDXL base and refiner give
+     it plus the ImageBind and Llama shapes, on contiguous inputs and on the
      (B, S, H, D) views the router passes, within a limit scaled to each
-     element (TOL); times K1, the plain version and
+     element (TOL), each row on the path the kernel must take (it reports
+     the one it took: wgmma for bf16 at head_dim 64 and 128, mma.sync at
+     80, fma otherwise); times K1, the plain version and
      F.scaled_dot_product_attention (the yardstick, never called by the
      port) with CUDA events;
   3. K2 (the quantized decode matvec) against its plain version in bf16
@@ -65,8 +67,8 @@ phase 5, the tiny trainer in fp32 on the card against the CPU (3 steps,
 then a falling loss at lr 5e-3, then a save and a resume).
 
 Every main-path run reads the K1, K2, K3, K4a and K4b counters, set to 0
-just before it; K3 must stay at 0 outside subject consistency, K4a and
-K4b outside training.
+just before it (K1's also by the path each launch took); K3 must stay at
+0 outside subject consistency, K4a and K4b outside training.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. `--out PATH` also writes every reading
 as JSON.
@@ -103,7 +105,10 @@ TOL = {
     "float32": {"rtol": 2**-15, "stol": 2**-15, "lse": 1e-4},
 }
 # Deliberately broken copies of K1 that the check above must refuse
-# (`--planted-faults`): (what it breaks, source text, replacement).
+# (`--planted-faults`): (what it breaks, source text, replacement[, file]),
+# the file in csrc/ that holds the text when it is not flash_fwd.cu. The
+# mma_* faults now show at head_dim 80 only, the fma_* ones on the scalar
+# shapes; the wgmma_* ones patch the Hopper loop (flash_fwd_sm90.cuh).
 FAULTS = {
     "mma_skip_rescale": (
         "tensor-core path: the accumulator of the first row of each fragment is "
@@ -121,6 +126,28 @@ FAULTS = {
         "scalar path: the accumulator is not rescaled when the running max grows",
         "for (int i = 0; i < DT; ++i) acc[i] *= alpha;",
         "for (int i = 0; i < DT; ++i) acc[i] *= 1.f;"),
+    "wgmma_skip_rescale": (
+        "wgmma path: the o accumulator is not rescaled when the running max grows",
+        "for (int i = 0; i < DO / 2; ++i) o[i] *= alpha[(i >> 1) & 1];",
+        "for (int i = 0; i < DO / 2; ++i) o[i] *= 1.f;", "flash_fwd_sm90.cuh"),
+    "wgmma_drop_first_tile": (
+        "wgmma path: the first key tile is never loaded (tile i holds the keys of tile i + 1)",
+        "const int key0 = it * kKeys;", "const int key0 = (it + 1) * kKeys;",
+        "flash_fwd_sm90.cuh"),
+    "wgmma_no_key_tail_mask": (
+        "wgmma path: keys past Sk (or kv_len) are not masked, so the zero-filled tail of the "
+        "last tile counts",
+        "const bool valid = col < skb && (!causal || col <= rows[r] + offset);",
+        "const bool valid = !causal || col <= rows[r] + offset;", "flash_fwd_sm90.cuh"),
+    "wgmma_causal_tile_short": (
+        "wgmma path: the causal tile bound is one key tile short",
+        "kend = max(0, min(skb, last + offset + 1));",
+        "kend = max(0, min(skb, last + offset + 1 - kKeys));", "flash_fwd_sm90.cuh"),
+    "wgmma_neighbour_stage": (
+        "wgmma path: Q.K^T reads k from the neighbouring stage of the ring",
+        "const uint32_t k_tile = sk + stage * kTileBytes;",
+        "const uint32_t k_tile = sk + ((stage + 1) % kStages) * kTileBytes;",
+        "flash_fwd_sm90.cuh"),
 }
 K1_SHAPES = [
     # (label, (B, H, Sq, D), Sk, causal)
@@ -128,11 +155,38 @@ K1_SHAPES = [
     ("unet self 32x32", (2, 20, 1024, 64), 1024, False),
     ("unet text cross", (2, 10, 4096, 64), 77, False),
     ("unet ip cross", (2, 10, 4096, 64), 4, False),
+    ("refiner self 64x64", (2, 12, 4096, 64), 4096, False),
+    ("refiner self 32x32", (2, 24, 1024, 64), 1024, False),
+    ("ragged d=64", (2, 10, 1000, 64), 999, False),
     ("imagebind vit-h", (1, 16, 257, 80), 257, False),
     ("llama causal", (1, 32, 600, 128), 600, True),
     ("llama causal sq<sk", (1, 32, 64, 128), 600, True),
+    ("non-causal d=128 sq!=sk", (2, 8, 333, 128), 517, False),
     ("head_dim 72 (fma path)", (1, 4, 300, 72), 200, False),
 ]
+
+
+def k1_path_expected(dname, d):
+    """The path K1 must take for rows with 16-byte aligned strides (every
+    checked tensor): wgmma for bf16 at head_dim 64 and 128, mma.sync for
+    bf16 at 80, the scalar fma loop otherwise."""
+    if dname != "bfloat16":
+        return "fma"
+    return {64: "wgmma", 128: "wgmma", 80: "mma"}.get(d, "fma")
+
+
+def reset_k1(fa):
+    fa.flash_fwd_cuda.launches = 0
+    fa.flash_fwd_cuda.launches_by_path = dict.fromkeys(fa.K1_PATHS, 0)
+
+
+def k1_paths_of(fa, fn):
+    """Run fn and return (its result, the K1 paths it launched, in order of
+    K1_PATHS, each with its count)."""
+    before = dict(fa.flash_fwd_cuda.launches_by_path)
+    out = fn()
+    return out, {p: n - before[p] for p, n in fa.flash_fwd_cuda.launches_by_path.items()
+                 if n != before[p]}
 
 # K2 vs its plain version, per output element:
 #   |y - y_ref| <= 2^-7 max(|y_ref|, |y_ref - r|) + 2^-6 sigma + 2^-14 A
@@ -344,16 +398,21 @@ def _k1_row(failures, timed, dtype, dname, label, shape, sk, causal):
     ref = k1_reference(fa, q, k, v, causal, scale)
     views = tuple(bshd_view(x) for x in (q, k, v))
     readings = []
-    for lq, lk, lv in ((q, k, v), views):
-        o, lse = fa.flash_fwd_cuda(lq, lk, lv, causal, scale, return_lse=True)
-        readings.append(k1_reading(o, lse, ref))
-    ok = all(r["ok"] for r in readings)
-    # the tensor-core path takes bf16 with head_dim 64, 80 or 128 on 16-byte
-    # aligned rows (all of these tensors)
-    path = "mma" if dname == "bfloat16" and d in (64, 80, 128) else "fma"
+    (o, lse), taken = k1_paths_of(fa, lambda: fa.flash_fwd_cuda(q, k, v, causal, scale,
+                                                                 return_lse=True))
+    readings.append(k1_reading(o, lse, ref))
+    (o, lse), taken_bshd = k1_paths_of(fa, lambda: fa.flash_fwd_cuda(*views, causal, scale,
+                                                                      return_lse=True))
+    readings.append(k1_reading(o, lse, ref))
+    # the path the kernel reports, for both layouts; every tensor here has
+    # 16-byte aligned rows
+    path = "/".join(sorted({*taken, *taken_bshd}))
+    expected = k1_path_expected(dname, d)
+    path_ok = taken == taken_bshd == {expected: 1}
+    ok = all(r["ok"] for r in readings) and path_ok
     row = {
-        "label": label, "dtype": dname, "path": path, "shape": list(shape), "sk": sk,
-        "causal": causal, "ok": ok,
+        "label": label, "dtype": dname, "path": path, "path_expected": expected,
+        "shape": list(shape), "sk": sk, "causal": causal, "ok": ok,
         "err_o": max(r["err_o"] for r in readings),
         "of_limit": max(r["of_limit"] for r in readings),
         "of_limit_bhsd": readings[0]["of_limit"],
@@ -363,7 +422,8 @@ def _k1_row(failures, timed, dtype, dname, label, shape, sk, causal):
     }
     if not ok:
         failures.append(f"K1 {label} {dname}: |o| {row['err_o']:.3g} = {row['of_limit']:.3g} of "
-                        f"its limit, |lse| {row['err_lse']:.3g}")
+                        f"its limit, |lse| {row['err_lse']:.3g}, path {path} (expected "
+                        f"{expected})")
     msg = (f"K1 {label:22s} {dname:8s} {path} {str(shape):18s} sk={sk:<5d} causal={int(causal)} "
            f"|o|={row['err_o']:.3g} (of limit: bhsd {row['of_limit_bhsd']:.3f}, bshd "
            f"{row['of_limit_bshd']:.3f}; limit median {row['limit_median']:.3g}) "
@@ -899,19 +959,26 @@ def _k1_kv_row(failures, timed, si, label, shape, sk, causal, kv, dname):
     del p
     tol = TOL[dname]
     ref = (o_ref, lse_ref, tol["rtol"] * o_ref.float().abs() + tol["stol"] * sigma)
-    readings = []
+    readings, taken = [], {}
     for lq, lk, lv in ((q, k, v), tuple(bshd_view(x) for x in (q, k, v))):
-        o, lse = fa.flash_fwd_cuda(lq, lk, lv, causal, scale, return_lse=True, kv_len=kv_len)
+        (o, lse), paths = k1_paths_of(fa, lambda: fa.flash_fwd_cuda(
+            lq, lk, lv, causal, scale, return_lse=True, kv_len=kv_len))
         readings.append(k1_reading(o, lse, ref))
+        for p_, n in paths.items():
+            taken[p_] = taken.get(p_, 0) + n
+    expected = k1_path_expected(dname, d)
     row = {"label": label, "dtype": dname, "shape": list(shape), "sk": sk, "causal": causal,
-           "kv_len": list(kv), "ok": all(r["ok"] for r in readings),
+           "kv_len": list(kv), "path": "/".join(sorted(taken)), "path_expected": expected,
+           "ok": all(r["ok"] for r in readings) and taken == {expected: 2},
            "err_o": max(r["err_o"] for r in readings),
            "of_limit": max(r["of_limit"] for r in readings),
            "err_lse": max(r["err_lse"] for r in readings)}
     if not row["ok"]:
         failures.append(f"K1 kv_len {label} {dname}: |o| {row['err_o']:.3g} = "
-                        f"{row['of_limit']:.3g} of its limit, |lse| {row['err_lse']:.3g}")
-    msg = (f"K1 kv_len {label:18s} {dname:8s} {str(shape):18s} kv_len={kv} |o|={row['err_o']:.3g} "
+                        f"{row['of_limit']:.3g} of its limit, |lse| {row['err_lse']:.3g}, path "
+                        f"{row['path']} (expected {expected})")
+    msg = (f"K1 kv_len {label:18s} {dname:8s} {row['path']} {str(shape):18s} kv_len={kv} "
+           f"|o|={row['err_o']:.3g} "
            f"(of limit {row['of_limit']:.3f}) |lse|={row['err_lse']:.3g}")
     if timed:
         iters = 10 if sq * sk >= 1 << 22 else 50
@@ -1038,19 +1105,24 @@ def phase_k4(failures, timed=True):
 
 
 def _build_faults(src_name, faults):
-    """Write and build each broken copy of csrc/<src_name>.cu under
-    build/faults; returns {fault: library path}."""
+    """Write and build each broken copy of csrc/<src_name>.cu, or of the
+    csrc/ header its entry names, in a directory of its own under
+    build/faults (the source's `#include "..."` finds a patched header there
+    first, the others in csrc/); returns {fault: library path}."""
     from instructany2pix_tpu_torch.ops import _build
 
     src = (_build.CSRC / f"{src_name}.cu").read_text()
-    out_dir = _build.BUILD_DIR.parent / "faults"
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (_, old, new) in faults.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"fault {name}: its source text is not in {src_name}.cu exactly once")
-        cu = out_dir / f"{src_name}_{name}.cu"
-        cu.write_text(src.replace(old, new))
+    for name, (_, old, new, *where) in faults.items():
+        target = where[0] if where else f"{src_name}.cu"
+        text = (_build.CSRC / target).read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"fault {name}: its source text is not in {target} exactly once")
+        out_dir = _build.BUILD_DIR.parent / "faults" / f"{src_name}_{name}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cu = out_dir / f"{src_name}.cu"
+        cu.write_text(src)
+        (out_dir / target).write_text(text.replace(old, new))
         so = cu.with_suffix(".so")
         procs[name] = (so, subprocess.Popen(
             _build.nvcc_command(cu, so), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1168,7 +1240,7 @@ def phase_full_width(failures):
     out.update({"steps": STEPS, "requests": []})
     try:
         for name, kw, expected in requests:
-            fa.flash_fwd_cuda.launches = 0
+            reset_k1(fa)
             fa.flash_relpos2d_cuda.launches = 0
             Q.qmv_cuda.launches = 0
             reset_k4(fa)
@@ -1187,6 +1259,7 @@ def phase_full_width(failures):
                                 f"{finite[-1]} K1 launches {launches} (expected {expected}), "
                                 f"K3 launches {k3} (expected 0)")
             out["requests"].append({"name": name, "seconds": dt, "k1_launches": launches,
+                                    "k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
                                     "k1_expected": expected, "k2_launches": k2,
                                     "k3_launches": k3, **k4, "mean_pixel": float(img.mean())})
             log(f"request {name}: {dt:.3f} s, {STEPS} steps, K1 launches {launches} "
@@ -1299,7 +1372,7 @@ def phase_edit(pipe, failures, finite):
         # ---- the LLM half
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
-        fa.flash_fwd_cuda.launches = 0
+        reset_k1(fa)
         fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
@@ -1315,6 +1388,7 @@ def phase_edit(pipe, failures, finite):
         k1_expected = cfg.imagebind_vision.layers + cfg.imagebind_audio.layers
         per_step = 4 * cfg.llm.llama.num_layers
         out.update({"k1_launches": k1, "k1_expected": k1_expected, "k2_launches": k2,
+                    "k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
                     "k3_launches": k3, "decode_steps": steps, "k2_expected": per_step * steps,
                     "stage_seconds": dict(pipe.stage_times), "caption": res[2][:120],
                     "tokens": gen.tokens[0, :steps + 1].tolist(),
@@ -1416,7 +1490,7 @@ def phase_edit(pipe, failures, finite):
                     + ref_steps * 2 * blocks("refiner"))
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
-        fa.flash_fwd_cuda.launches = 0
+        reset_k1(fa)
         fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
@@ -1429,6 +1503,7 @@ def phase_edit(pipe, failures, finite):
         k1, k3 = fa.flash_fwd_cuda.launches, fa.flash_relpos2d_cuda.launches
         out.update({"call_" + k: v for k, v in no_k4(fa, failures, "__call__").items()})
         out.update({"call_stage_seconds": dict(pipe.stage_times), "call_k1_launches": k1,
+                    "call_k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
                     "call_k1_expected": expected, "call_k2_launches": Q.qmv_cuda.launches,
                     "call_k3_launches": k3,
                     "call_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1511,7 +1586,7 @@ def phase_subject(pipe, failures, finite):
                            extra_idx=np.array([0])))
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
-        fa.flash_fwd_cuda.launches = 0
+        reset_k1(fa)
         fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
@@ -1523,9 +1598,11 @@ def phase_subject(pipe, failures, finite):
         torch.cuda.synchronize()
         out["call_seconds"] = time.time() - t0
         k1, k3 = fa.flash_fwd_cuda.launches, fa.flash_relpos2d_cuda.launches
+        k1_by_path = dict(fa.flash_fwd_cuda.launches_by_path)
         out.update(no_k4(fa, failures, "subject __call__"))
         pipe.cache = None
     out.update({"stage_seconds": dict(pipe.stage_times), "k1_launches": k1,
+                "k1_by_path": k1_by_path,
                 "k1_expected": k1_expected, "k3_launches": k3, "segmentor_calls": len(masks),
                 "k2_launches": Q.qmv_cuda.launches,
                 "mask_fraction": [float(m.mean()) for m in masks],
@@ -1698,7 +1775,7 @@ def phase_train(failures):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_fwd_cuda.launches = 0
+        reset_k1(fa)
         fa.flash_relpos2d_cuda.launches = 0
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
@@ -1709,6 +1786,7 @@ def phase_train(failures):
                            device="cuda", params=params, step_hook=hook)
         torch.cuda.synchronize()
         run = dict(zip(("k1", "k4a", "k4b", "k2", "k3"), _counts(fa, Q)))
+        out["k1_by_path"] = dict(fa.flash_fwd_cuda.launches_by_path)
         # the preview after the last step runs one forward without remat
         run_expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
         run_expected["k1"] += L
@@ -2233,6 +2311,12 @@ def main(argv=None) -> int:
         "replaces": "instructany2pix_tpu/ops/flash_attention.py:44",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
+        # the same launches by the kernel path each took (wgmma, mma.sync, fma)
+        "launches_by_kernel_path": {
+            "text2img": {p: sum(r["k1_by_path"][p] for r in full["requests"])
+                         for p in full["requests"][0]["k1_by_path"]},
+            "forward_llm": edit["k1_by_path"], "edit_call": edit["call_k1_by_path"],
+            "subject_call": subject["k1_by_path"], "train": train["k1_by_path"]},
         "max_abs_err": max(r["err_o"] for r in rows if r["dtype"] == "bfloat16"),
         "max_abs_err_fp32": max(r["err_o"] for r in rows if r["dtype"] == "float32"),
         "max_err_of_limit": max(r["of_limit"] for r in rows + k4["k1_kv_len"]),

@@ -24,11 +24,14 @@
 // keeps the plain version's precision). The 77- and 4-key cross
 // attentions are bound by reading q and writing o.
 //
-// Two paths, chosen per call in `ia2p_flash_fwd`:
-//   * bf16 with head_dim 64 (SDXL), 80 (ImageBind, SAM) or 128 (Llama) and
-//     16-byte aligned rows: `flash_fwd_mma_kernel`, warp-level mma.sync
-//     m16n8k16 with float32 accumulators (below). wgmma, TMA and a
-//     cp.async pipeline are later work;
+// Three paths, chosen per call in `ia2p_flash_fwd`, which reports the one
+// it took through `ia2p_flash_fwd_last_path`:
+//   * bf16 with head_dim 64 (SDXL, the GPT-2 prior) or 128 (Llama) and
+//     16-byte aligned rows: `sm90::flash_fwd_wgmma_kernel` in
+//     flash_fwd_sm90.cuh, warp-specialised on TMA and wgmma (sm_90a only);
+//   * bf16 with head_dim 80 (ImageBind, SAM) and 16-byte aligned rows:
+//     `flash_fwd_mma_kernel`, warp-level mma.sync m16n8k16 with float32
+//     accumulators (below; K3 runs on it too);
 //   * everything else (float32, other head dims up to 256, unaligned
 //     strides): `flash_fwd_kernel`, float32 fma on the CUDA cores:
 //   * one block of 128 threads per (b*h, query tile); each query row is
@@ -64,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_fwd_sm90.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -201,8 +205,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------------
-// Tensor-core path for bf16 with head_dim 64, 80 or 128 and 16-byte
-// aligned rows: mma.sync m16n8k16 with float32 accumulators.
+// Tensor-core path for bf16 with head_dim 80 and 16-byte aligned rows (and
+// K3 at 64 and 80): mma.sync m16n8k16 with float32 accumulators.
 // A block of 4 warps owns 64 query rows (16 per warp); 64-key tiles of K
 // (row-major) and V (transposed on the way in) sit in padded shared
 // memory so every fragment is one conflict-free 32-bit load. S = Q.K^T
@@ -488,25 +492,32 @@ bool mma_aligned(const void* q, const void* k, const void* v, const void* o,
   return (ptrs % 16) == 0 && (strides % 8) == 0;
 }
 
-template <typename T>
-cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o,
-                         float* lse, const int* kv_len, int B, int H, int Sq, int Sk, int D,
-                         const Strides& st, float scale, int causal,
-                         cudaStream_t stream, bool* taken) {
+// Which path a call of `ia2p_flash_fwd` took, per calling thread.
+enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2 };
+thread_local int last_path = kPathFma;
+
+// The tensor-core paths of a bf16 call with 16-byte aligned rows: wgmma at
+// head_dim 64 and 128, mma.sync at 80. A call either takes one of them,
+// whose launch result is returned (a refused wgmma launch or tensor map
+// included), or neither (*taken false).
+cudaError_t dispatch_tensor_core(const void* q, const void* k, const void* v, void* o,
+                                 float* lse, const int* kv_len, int B, int H, int Sq, int Sk,
+                                 int D, const Strides& st, float scale, int causal,
+                                 cudaStream_t stream, bool* taken) {
+  using T = __nv_bfloat16;
   *taken = (D == 64 || D == 80 || D == 128) && mma_aligned(q, k, v, o, st);
   if (!*taken) return cudaSuccess;
+  if (D != 80) {
+    last_path = kPathWgmma;
+    return sm90::dispatch({q, st.qb, st.qh, st.qs}, {k, st.kb, st.kh, st.ks},
+                          {v, st.vb, st.vh, st.vs}, {o, st.ob, st.oh, st.os}, lse, kv_len, B, H,
+                          Sq, Sk, D, scale, causal, stream);
+  }
+  last_path = kPathMma;
   if (kv_len != nullptr) {
-    switch (D) {
-      case 64: return launch_mma<T, 64, NoBias, true>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, st, scale, causal, stream);
-      case 80: return launch_mma<T, 80, NoBias, true>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, st, scale, causal, stream);
-      default: return launch_mma<T, 128, NoBias, true>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, st, scale, causal, stream);
-    }
+    return launch_mma<T, 80, NoBias, true>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, st, scale, causal, stream);
   }
-  switch (D) {
-    case 64: return launch_mma<T, 64>(q, k, v, o, lse, nullptr, B, H, Sq, Sk, st, scale, causal, stream);
-    case 80: return launch_mma<T, 80>(q, k, v, o, lse, nullptr, B, H, Sq, Sk, st, scale, causal, stream);
-    default: return launch_mma<T, 128>(q, k, v, o, lse, nullptr, B, H, Sq, Sk, st, scale, causal, stream);
-  }
+  return launch_mma<T, 80>(q, k, v, o, lse, nullptr, B, H, Sq, Sk, st, scale, causal, stream);
 }
 
 template <typename T, int TPR, int DT>
@@ -548,7 +559,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 float32, 1 bfloat16. Strides are in elements. lse (float32,
 // (B*H, Sq)) and kv_len (int32, (B,)) may be null.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success), or the error
+// that refused it; `ia2p_flash_fwd_last_path` then tells which path the
+// call took.
 extern "C" int ia2p_flash_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* o, float* lse, const int* kv_len,
                               int B, int H,
@@ -561,12 +574,13 @@ extern "C" int ia2p_flash_fwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool taken = false;
   cudaError_t err = cudaSuccess;
+  last_path = kPathFma;
   switch (dtype) {
     case 0:
       return dispatch<float>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, s);
     case 1:
-      err = dispatch_mma<__nv_bfloat16>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale,
-                                        causal, s, &taken);
+      err = dispatch_tensor_core(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale, causal, s,
+                                 &taken);
       return taken ? err
                    : dispatch<__nv_bfloat16>(q, k, v, o, lse, kv_len, B, H, Sq, Sk, D, st, scale,
                                              causal, s);
@@ -574,6 +588,9 @@ extern "C" int ia2p_flash_fwd(int dtype, const void* q, const void* k,
       return cudaErrorInvalidValue;
   }
 }
+
+// 0 fma, 1 mma.sync, 2 wgmma: the path of this thread's last `ia2p_flash_fwd`.
+extern "C" int ia2p_flash_fwd_last_path() { return last_path; }
 
 // K3. bfloat16 q, k, v, o with head_dim D in {64, 80} and 16-byte aligned
 // rows; float32 bh, bw contiguous (B, H, N, G) with N = G * G. Strides of

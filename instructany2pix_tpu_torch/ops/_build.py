@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `build/kernels/<name>-<hash>.so` at the root of the checkout (a
 directory git ignores). The hash covers the source, the `csrc/` headers it
-includes (`#include "..."`) and the flags, so an edited source or header is
-rebuilt and an unchanged one is reused. Nothing is
+includes (`#include "..."`, also through another header) and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.
+Nothing is
 compiled when a module is imported; `load` compiles on the first launch
 and `build` compiles several sources in parallel, one `nvcc` each.
 """
@@ -45,9 +46,14 @@ def _nvcc() -> str:
 
 
 def sources(name: str) -> List[Path]:
-    """`csrc/<name>.cu` and the `csrc/` headers it includes."""
-    src = CSRC / f"{name}.cu"
-    return [src] + [CSRC / inc for inc in _INCLUDE.findall(src.read_text())]
+    """`csrc/<name>.cu` and the `csrc/` headers it includes, directly or
+    through another header, each once."""
+    out = [CSRC / f"{name}.cu"]
+    for path in out:
+        for inc in _INCLUDE.findall(path.read_text()):
+            if CSRC / inc not in out:
+                out.append(CSRC / inc)
+    return out
 
 
 def artifact(name: str) -> Path:

@@ -164,25 +164,34 @@ def _check_kv_len(kv_len, q):
     return kv_len.data_ptr()
 
 
+K1_PATHS = ("fma", "mma", "wgmma")  # ia2p_flash_fwd_last_path's codes
+
+
 def _lib():
+    """K1's entry point and the query of the path its last call took."""
     from . import _build
 
     lib = _build.load("flash_fwd")
-    fn = lib.ia2p_flash_fwd
+    fn, path = lib.ia2p_flash_fwd, lib.ia2p_flash_fwd_last_path
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
             + [ctypes.c_int64] * 12 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-    return fn
+        path.argtypes = []
+        path.restype = ctypes.c_int
+    return fn, path
 
 
 def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False, kv_len=None):
     """Launch K1 on PyTorch's current stream. Outputs come from
     `torch.empty`; the kernel allocates nothing. Raises on input the kernel
     does not take and on a refused launch. The output carries no gradient:
-    `flash_attention` is the differentiable entry point."""
+    `flash_attention` is the differentiable entry point. Each launch is
+    counted in `launches` and, by the path the kernel took (K1_PATHS: wgmma
+    for bf16 at head_dim 64 and 128, mma.sync at 80, fma otherwise), in
+    `launches_by_path`."""
     _check(q, k, v)
     kv_ptr = _check_kv_len(kv_len, q)
     b, h, sq, d = q.shape
@@ -191,7 +200,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if sq == 0 or b * h == 0:
         return (o, lse) if return_lse else o
-    fn = _lib()
+    fn, last_path = _lib()
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -200,13 +209,17 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
             o.data_ptr(), lse.data_ptr() if lse is not None else None, kv_ptr,
             b, h, sq, sk, d, *strides, float(scale), int(bool(causal)), stream,
         )
+    path = K1_PATHS[last_path()]
     if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"flash_attention: kernel launch ({path} path) failed with CUDA "
+                           f"error {rc}")
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.launches_by_path[path] += 1
     return (o, lse) if return_lse else o
 
 
 flash_fwd_cuda.launches = 0  # K1 launches in this process
+flash_fwd_cuda.launches_by_path = dict.fromkeys(K1_PATHS, 0)  # the same, by path taken
 
 
 def _check_bwd(q, k, v, g, lse, delta):

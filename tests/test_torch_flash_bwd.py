@@ -248,10 +248,13 @@ def test_kernels_without_backward_refuse_grad_inputs():
     assert torch.equal(y, Q._qmv_reference(x.detach(), qw, None, 1e-6, False, None))
 
 
+CSRC_FILES = ("flash_fwd.cu", "flash_fwd_sm90.cuh", "flash_bwd.cu", "flash_mma.cuh", "qmv.cu")
+
+
 def test_build_hashes_included_headers(tmp_path, monkeypatch):
     """K1 and K4 share csrc/flash_mma.cuh: editing it must give both new
     libraries, and leave K2's alone."""
-    for name in ("flash_fwd.cu", "flash_bwd.cu", "flash_mma.cuh", "qmv.cu"):
+    for name in CSRC_FILES:
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert [p.name for p in _build.sources("flash_bwd")] == ["flash_bwd.cu", "flash_mma.cuh"]
@@ -264,3 +267,60 @@ def test_build_hashes_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
     cmd = _build.nvcc_command(tmp_path / "flash_bwd.cu", tmp_path / "x.so")
     assert cmd[cmd.index("-I") + 1] == str(tmp_path)
+
+
+def test_build_hash_covers_the_hopper_header_and_flags(tmp_path, monkeypatch):
+    """K1's wgmma loop lives in csrc/flash_fwd_sm90.cuh, which includes
+    flash_mma.cuh itself: editing it rebuilds K1 (and K3, the same library)
+    and nothing else, a header reached only through another header is
+    hashed too, and a changed nvcc flag rebuilds every library."""
+    for name in CSRC_FILES:
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("flash_fwd")] == [
+        "flash_fwd.cu", "flash_fwd_sm90.cuh", "flash_mma.cuh"]
+    names = ("flash_fwd", "flash_bwd", "qmv")
+    before = {n: _build.artifact(n) for n in names}
+    hdr = tmp_path / "flash_fwd_sm90.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edit\n")
+    after = {n: _build.artifact(n) for n in names}
+    assert after["flash_fwd"] != before["flash_fwd"]
+    assert after["flash_bwd"] == before["flash_bwd"] and after["qmv"] == before["qmv"]
+    # a header included only by a header
+    (tmp_path / "nested.cuh").write_text("#pragma once\n")
+    hdr.write_text('#include "nested.cuh"\n' + hdr.read_text())
+    assert "nested.cuh" in [p.name for p in _build.sources("flash_fwd")]
+    nested = _build.artifact("flash_fwd")
+    (tmp_path / "nested.cuh").write_text("#pragma once\n// edit\n")
+    assert _build.artifact("flash_fwd") != nested
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert all(_build.artifact(n) != after[n] for n in ("flash_bwd", "qmv"))
+
+
+def test_planted_faults_patch_real_code():
+    """Every planted fault of chip_smoke.py (K1's mma.sync, fma and wgmma
+    loops, K2, K3, K4) names source text that occurs exactly once in the
+    file it patches, so each broken copy differs from the real kernel."""
+    import chip_smoke
+
+    sets = ((chip_smoke.FAULTS, "flash_fwd"), (chip_smoke.QMV_FAULTS, "qmv"),
+            (chip_smoke.K3_FAULTS, "flash_fwd"), (chip_smoke.K4_FAULTS, "flash_bwd"))
+    wgmma = 0
+    for faults, src in sets:
+        for name, (what, old, new, *where) in faults.items():
+            target = where[0] if where else f"{src}.cu"
+            assert (_build.CSRC / target).read_text().count(old) == 1, name
+            assert old != new and what, name
+            wgmma += target == "flash_fwd_sm90.cuh"
+    assert wgmma >= 5
+
+
+def test_k1_counts_launches_by_path():
+    """The wrapper keeps a launch count per path beside the total; a CPU
+    call runs the plain version and counts nothing."""
+    assert fa.K1_PATHS == ("fma", "mma", "wgmma")
+    assert set(fa.flash_fwd_cuda.launches_by_path) == set(fa.K1_PATHS)
+    q = t(randn(7, 1, 2, 16, 64))
+    before = dict(fa.flash_fwd_cuda.launches_by_path)
+    fa.flash_attention(q, q, q)
+    assert fa.flash_fwd_cuda.launches_by_path == before
