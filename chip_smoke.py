@@ -53,22 +53,27 @@ launched exactly 4 times per segmentor call, a non-empty mask, a finite
 GroundingDINO Swin-T grounder (float32) on the edited image.
 
 Training (slice 4): after K3, K1 with a per-row key count (`kv_len`)
-against the router's plain masked path, and K4a/K4b (the flash backward)
+against the router's plain masked path, and K4 (the flash backward)
 against the plain backward at the Llama training shape with and without
 ragged rows, sq != sk, ragged D = 80, the UNet shape, the scalar path and
-float32, on contiguous inputs and (B, S, H, D) views (K4_TOL), each timed
-beside its bound, the plain backward and SDPA's backward. After phase 4
-(its pipeline freed), the trainer at full width: `train.launch.train` on
-Vicuna-7B's widths with 4 of 32 layers, bf16, remat "dots", batch 4 x 2048
-of a synthetic dataset through the port's collate, 5 steps with a preview
-and a checkpoint (finite losses, exact K1/K4a/K4b launches per step, K2 =
-K3 = 0; step time, tokens/s, peak memory, one step profiled). After
-phase 5, the tiny trainer in fp32 on the card against the CPU (3 steps,
-then a falling loss at lr 5e-3, then a save and a resume).
+float32, on contiguous inputs and (B, S, H, D) views (K4_TOL): the whole
+backward (`flash_bwd_cuda`: the fused TMA/wgmma kernel at bf16 head_dim 64
+and 128, which every such row must report, K4a then K4b otherwise) and,
+at the rows K4a then K4b serve, K4a and K4b on their own, each timed
+beside its bound, the plain backward and SDPA's backward. After phase 4 (its pipeline freed),
+the trainer at full width: `train.launch.train` on Vicuna-7B's widths with
+4 of 32 layers, bf16, remat "dots", batch 4 x 2048 of a synthetic dataset
+through the port's collate, 5 steps with a preview and a checkpoint
+(finite losses, exact K1 and K4 launches per step, the fused path each
+time, K4a = K4b = K2 = K3 = 0; step time, tokens/s, peak memory, one step
+profiled). After phase 5, the tiny trainer in fp32 on the card against
+the CPU (3 steps on K4's fma path, then a falling loss at lr 5e-3, then a
+save and a resume).
 
-Every main-path run reads the K1, K2, K3, K4a and K4b counters, set to 0
-just before it (K1's also by the path each launch took); K3 must stay at
-0 outside subject consistency, K4a and K4b outside training.
+Every main-path run reads the K1, K2, K3, K4, K4a and K4b counters, set to
+0 just before it (K1's and K4's also by the path each launch took); K3
+must stay at 0 outside subject consistency, K4 outside training, and K4a
+and K4b (the two-kernel entry points) everywhere.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. `--out PATH` also writes every reading
 as JSON.
@@ -736,7 +741,10 @@ FN_SHAPES = [
     ("ragged d=80", (2, 1000, 16, 80), (1000, 613), "bfloat16"),
     ("float32 ragged", (2, 300, 4, 64), (300, 123), "float32"),
 ]
-# Deliberately broken copies of K4 (csrc/flash_bwd.cu) that the check must refuse.
+# Deliberately broken copies of K4 that the check must refuse: the first four
+# patch the two-kernel path (csrc/flash_bwd.cu), which the whole backward
+# takes at D = 80, 72 and in float32 and the check also runs on its own
+# there; the fused_* ones patch the fused wgmma kernel (flash_bwd_sm90.cuh).
 K4_FAULTS = {
     "delta_dropped": (
         "K4a: ds = p * dp * scale, without delta",
@@ -751,21 +759,56 @@ K4_FAULTS = {
     "kv_len_ignored": (
         "K4a and K4b: every row sees all Sk keys (kv_len is not passed on to the kernels)",
         "  a.kv_len = kv_len;\n", "  a.kv_len = nullptr;\n"),
+    "fused_delta_dropped": (
+        "fused path: ds = p * dp * scale, without delta",
+        "dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dlt) * p.scale;",
+        "dp[4 * j + e] = s[4 * j + e] * dp[4 * j + e] * p.scale;", "flash_bwd_sm90.cuh"),
+    "fused_causal_start_late": (
+        "fused path: the causal query loop starts one tile late",
+        "const int qt0 = p.causal ? max(key0 - offset, 0) / kQRows : 0;",
+        "const int qt0 = p.causal ? max(key0 - offset, 0) / kQRows + 1 : 0;", "flash_bwd_sm90.cuh"),
+    "fused_dq_partial_tile_dropped": (
+        "fused path: dq of a partial query tile (Sq not a multiple of 64) is never added",
+        "if (ct == 0) {  // one thread issues both reduce-adds",
+        "if (ct == 0 && q0 + kQRows <= p.Sq) {  // one thread issues both reduce-adds",
+        "flash_bwd_sm90.cuh"),
+    "fused_kv_len_tail_unmasked": (
+        "fused path: keys at or past kv_len[b] are not masked",
+        "const bool valid = row < Sq && key < skb && (!causal || key <= row + offset);",
+        "const bool valid = row < Sq && (!causal || key <= row + offset);", "flash_bwd_sm90.cuh"),
+    "fused_neighbour_stage": (
+        "fused path: the consumers read q and dO from the neighbouring stage of the ring",
+        "const uint32_t q_tile = ring + stage * L::kStageBytes;",
+        "const uint32_t q_tile = ring + ((stage + 1) % kStages) * L::kStageBytes;",
+        "flash_bwd_sm90.cuh"),
 }
 
 
+def k4_path_expected(dname, d):
+    """The path of the whole backward (`flash_bwd_cuda`) for rows with
+    16-byte aligned strides: the fused wgmma kernel for bf16 at head_dim 64
+    and 128, K4a and K4b on mma.sync for bf16 at 80, on the scalar fma loop
+    otherwise."""
+    if dname != "bfloat16":
+        return "fma"
+    return {64: "wgmma", 128: "wgmma", 80: "mma"}.get(d, "fma")
+
+
 def reset_k4(fa):
+    fa.flash_bwd_cuda.launches = 0
+    fa.flash_bwd_cuda.launches_by_path = dict.fromkeys(fa.K4_PATHS, 0)
     fa.flash_bwd_dq_cuda.launches = 0
     fa.flash_bwd_dkv_cuda.launches = 0
 
 
 def no_k4(fa, failures, path):
-    """K4a and K4b launches of an inference path (set to 0 just before it),
-    which must be 0: nothing there needs a gradient."""
-    a, b = fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches
-    if a or b:
-        failures.append(f"{path}: K4a {a} and K4b {b} launches (expected 0)")
-    return {"k4a_launches": a, "k4b_launches": b}
+    """K4, K4a and K4b launches of an inference path (set to 0 just before
+    it), which must be 0: nothing there needs a gradient."""
+    f, a, b = (fa.flash_bwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+               fa.flash_bwd_dkv_cuda.launches)
+    if f or a or b:
+        failures.append(f"{path}: K4 {f}, K4a {a} and K4b {b} launches (expected 0)")
+    return {"k4_launches": f, "k4a_launches": a, "k4b_launches": b}
 
 
 def _kv_tensor(kv):
@@ -789,15 +832,18 @@ def visible_pairs(b, h, sq, sk, causal, kv):
 
 
 def k4_bound(shape, sk, causal, kv, dtype_name):
-    """Least time of K4a and of K4b: K4a does 3 products of 2 D flops per
-    visible pair (q.k, dO.v, ds.k), K4b 4 (q.k, dO.v, p^T.dO, ds^T.q), over
-    the peak for the dtype; bytes: q, k, v, dO read once, lse and delta
-    read, dq (K4a) or dk and dv (K4b) written, over 3.35 TB/s."""
+    """Least time of the whole backward and of K4a and K4b alone: the
+    backward does 5 products of 2 D flops per visible pair (q.k, dO.v,
+    p^T.dO, ds^T.q, ds.k), K4a 3 (q.k, dO.v, ds.k), K4b 4 (q.k, dO.v,
+    p^T.dO, ds^T.q), over the peak for the dtype; bytes: q, k, v, dO read
+    once, lse and delta read, dq, dk and dv (K4a: dq; K4b: dk and dv)
+    written, over 3.35 TB/s."""
     b, h, sq, d = shape
     pairs = visible_pairs(b, h, sq, sk, causal, kv)
     elem = 2 if dtype_name == "bfloat16" else 4
     out = {}
     for name, products, nbytes in (
+            ("bwd", 5, elem * b * h * d * (3 * sq + 4 * sk) + 8 * b * h * sq),
             ("dq", 3, elem * b * h * d * (3 * sq + 2 * sk) + 8 * b * h * sq),
             ("dkv", 4, elem * b * h * d * (2 * sq + 4 * sk) + 8 * b * h * sq)):
         flops = 2.0 * products * d * pairs
@@ -836,7 +882,23 @@ def _reading(x, ref, sigma, tol):
             "ok": bool((diff <= limit).all())}
 
 
+def k4_paths_of(fa, fn):
+    """Run fn and return (its result, the paths of the whole backward it
+    launched, each with its count)."""
+    before = dict(fa.flash_bwd_cuda.launches_by_path)
+    out = fn()
+    return out, {p: n - before[p] for p, n in fa.flash_bwd_cuda.launches_by_path.items()
+                 if n != before[p]}
+
+
 def _k4_row(failures, timed, si, label, shape, sk, causal, kv, dname):
+    """The whole backward (`flash_bwd_cuda`, on the path k4_path_expected
+    names) against the plain backward, on contiguous inputs and on
+    (B, S, H, D) views, every element of dq, dk and dv within K4_TOL; where
+    that path is K4a then K4b (not the fused kernel), also K4a and K4b
+    called on their own. With `timed`, the whole backward (its
+    accumulator's zeroing and cast included; also with delta), there K4a
+    and K4b alone, the plain backward and SDPA's backward."""
     import torch
     import torch.nn.functional as F
 
@@ -857,48 +919,70 @@ def _k4_row(failures, timed, si, label, shape, sk, causal, kv, dname):
     sigmas = k4_sigmas(fa, q, k, v, g, lse, delta, causal, scale, kv_len)
     tol = K4_TOL[dname]
     views = tuple(bshd_view(x) for x in (q, k, v, g))
-    readings = []
+
+    def reading(grads):
+        return {n: _reading(x, r, sg, tol)
+                for n, x, r, sg in zip(("dq", "dk", "dv"), grads, ref, sigmas)}
+
+    expected = k4_path_expected(dname, d)
+    two_kernel = expected != "wgmma"  # K4a and K4b are the route of this row
+    readings = {"fused": [], "two": []}  # per layout: bhsd, then bshd
+    taken = {}
     for lq, lk, lv, lg in ((q, k, v, g), views):
-        dq = fa.flash_bwd_dq_cuda(lq, lk, lv, lg, lse, delta, causal, scale, kv_len)
-        dk, dv = fa.flash_bwd_dkv_cuda(lq, lk, lv, lg, lse, delta, causal, scale, kv_len)
-        readings.append({n: _reading(x, r, sg, tol)
-                         for n, x, r, sg in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, sigmas)})
-        del dq, dk, dv
+        grads, paths = k4_paths_of(fa, lambda: fa.flash_bwd_cuda(
+            lq, lk, lv, lg, lse, delta, causal, scale, kv_len))
+        readings["fused"].append(reading(grads))
+        for p_, n in paths.items():
+            taken[p_] = taken.get(p_, 0) + n
+        del grads
+        if two_kernel:
+            dq = fa.flash_bwd_dq_cuda(lq, lk, lv, lg, lse, delta, causal, scale, kv_len)
+            dk, dv = fa.flash_bwd_dkv_cuda(lq, lk, lv, lg, lse, delta, causal, scale, kv_len)
+            readings["two"].append(reading((dq, dk, dv)))
+            del dq, dk, dv
     torch.cuda.synchronize()
-    path = "mma" if dname == "bfloat16" and d in (64, 80, 128) else "fma"
-    row = {"label": label, "dtype": dname, "path": path, "shape": list(shape), "sk": sk,
-           "causal": causal, "kv_len": list(kv) if kv else None,
-           "ok": all(r[n]["ok"] for r in readings for n in r)}
+    every = readings["fused"] + readings["two"]
+    row = {"label": label, "dtype": dname, "path": "/".join(sorted(taken)),
+           "path_expected": expected, "shape": list(shape), "sk": sk, "causal": causal,
+           "kv_len": list(kv) if kv else None,
+           "ok": all(r[n]["ok"] for r in every for n in r) and taken == {expected: 2}}
     for n in ("dq", "dk", "dv"):
-        row[f"err_{n}"] = max(r[n]["err"] for r in readings)
-        row[f"of_limit_{n}"] = max(r[n]["of_limit"] for r in readings)
+        row[f"err_{n}"] = max(r[n]["err"] for r in every)
+        row[f"of_limit_{n}"] = max(r[n]["of_limit"] for r in every)
     row["of_limit"] = max(row[f"of_limit_{n}"] for n in ("dq", "dk", "dv"))
-    row["of_limit_bhsd"] = max(readings[0][n]["of_limit"] for n in readings[0])
-    row["of_limit_bshd"] = max(readings[1][n]["of_limit"] for n in readings[1])
+    for key, rs in (("fused", readings["fused"]), ("two_kernel", readings["two"]),
+                    ("bhsd", every[0::2]), ("bshd", every[1::2])):
+        row[f"of_limit_{key}"] = max((r[n]["of_limit"] for r in rs for n in r), default=None)
     row["err"] = max(row[f"err_{n}"] for n in ("dq", "dk", "dv"))
     if not row["ok"]:
         failures.append(f"K4 {label} {dname}: " + ", ".join(
             f"|{n}| {row['err_' + n]:.3g} = {row['of_limit_' + n]:.3g} of its limit"
-            for n in ("dq", "dk", "dv")))
-    msg = (f"K4 {label:22s} {dname:8s} {path} {str(shape):18s} sk={sk:<5d} causal={int(causal)} "
-           f"kv_len={kv} of limit: dq {row['of_limit_dq']:.3f} dk {row['of_limit_dk']:.3f} "
-           f"dv {row['of_limit_dv']:.3f} (bhsd {row['of_limit_bhsd']:.3f}, bshd "
-           f"{row['of_limit_bshd']:.3f})")
+            for n in ("dq", "dk", "dv")) + f"; path {row['path']} (expected {expected})")
+    msg = (f"K4 {label:22s} {dname:8s} {row['path']:5s} {str(shape):18s} sk={sk:<5d} "
+           f"causal={int(causal)} kv_len={kv} of limit: dq {row['of_limit_dq']:.3f} dk "
+           f"{row['of_limit_dk']:.3f} dv {row['of_limit_dv']:.3f} (whole backward "
+           f"{row['of_limit_fused']:.3f}"
+           + (f", K4a+K4b alone {row['of_limit_two_kernel']:.3f}" if two_kernel else "")
+           + f"; bhsd {row['of_limit_bhsd']:.3f}, bshd {row['of_limit_bshd']:.3f})")
     del sigmas, ref
     if timed:
         iters = 10 if sq * sk >= 1 << 22 else 50
-        row["ms_dq"] = time_ms(
-            lambda: fa.flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, kv_len), iters)
-        row["ms_dkv"] = time_ms(
-            lambda: fa.flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, kv_len), iters)
-        row["ms_dq_bshd"] = time_ms(
-            lambda: fa.flash_bwd_dq_cuda(*views, lse, delta, causal, scale, kv_len), iters)
-        row["ms_dkv_bshd"] = time_ms(
-            lambda: fa.flash_bwd_dkv_cuda(*views, lse, delta, causal, scale, kv_len), iters)
+        row["ms"] = time_ms(
+            lambda: fa.flash_bwd_cuda(q, k, v, g, lse, delta, causal, scale, kv_len), iters)
+        row["ms_bshd"] = time_ms(
+            lambda: fa.flash_bwd_cuda(*views, lse, delta, causal, scale, kv_len), iters)
+        row["ms_with_delta"] = time_ms(lambda: fa.flash_bwd_cuda(
+            q, k, v, g, lse, fa.flash_delta(g, o), causal, scale, kv_len), iters)
+        if two_kernel:
+            row["ms_dq"] = time_ms(
+                lambda: fa.flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal, scale, kv_len), iters)
+            row["ms_dkv"] = time_ms(
+                lambda: fa.flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, kv_len),
+                iters)
         row["plain_ms"] = time_ms(lambda: fa.flash_bwd_reference(
             q, k, v, o, lse, g, causal, scale, kv_len, delta), 3, 1)
         # SDPA's backward as the yardstick (never called by the port): dq, dk
-        # and dv in one call, so it stands beside both kernels
+        # and dv in one call, its own delta included
         sdpa = {"scale": scale}
         if causal and sq == sk and kv is None:
             sdpa["is_causal"] = True
@@ -911,15 +995,18 @@ def _k4_row(failures, timed, si, label, shape, sk, causal, kv, dname):
             lambda: torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True), iters)
         del out, qr, kr, vr
         bounds = k4_bound(shape, sk, causal, kv, dname)
+        row["bound_ms"], row["bound_by"], flops = bounds["bwd"]
         row["bound_ms_dq"], row["bound_by_dq"], flops_dq = bounds["dq"]
         row["bound_ms_dkv"], row["bound_by_dkv"], flops_dkv = bounds["dkv"]
-        row["tflops_dq"] = flops_dq / (row["ms_dq"] * 1e-3) / 1e12
-        row["tflops_dkv"] = flops_dkv / (row["ms_dkv"] * 1e-3) / 1e12
-        msg += (f" K4a {row['ms_dq']:.4f} ms (bshd {row['ms_dq_bshd']:.4f}, bound "
-                f"{row['bound_ms_dq']:.4f} {row['bound_by_dq']}, {row['tflops_dq']:.1f} TFLOP/s)"
-                f" K4b {row['ms_dkv']:.4f} ms (bshd {row['ms_dkv_bshd']:.4f}, bound "
-                f"{row['bound_ms_dkv']:.4f} {row['bound_by_dkv']}, {row['tflops_dkv']:.1f} "
-                f"TFLOP/s) plain bwd {row['plain_ms']:.4f} sdpa bwd {row['library_ms']:.4f}")
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        msg += (f" K4 {row['ms']:.4f} ms (bshd {row['ms_bshd']:.4f}, with delta "
+                f"{row['ms_with_delta']:.4f}, bound {row['bound_ms']:.4f} {row['bound_by']}, "
+                f"{row['tflops']:.1f} TFLOP/s)")
+        if two_kernel:
+            row["tflops_dq"] = flops_dq / (row["ms_dq"] * 1e-3) / 1e12
+            row["tflops_dkv"] = flops_dkv / (row["ms_dkv"] * 1e-3) / 1e12
+            msg += f" K4a {row['ms_dq']:.4f} K4b {row['ms_dkv']:.4f}"
+        msg += f" plain bwd {row['plain_ms']:.4f} sdpa bwd {row['library_ms']:.4f}"
     log(msg + (" ok" if row["ok"] else " FAIL"))
     del q, k, v, g, o, lse, delta, views
     return row
@@ -1000,14 +1087,17 @@ def _k1_kv_row(failures, timed, si, label, shape, sk, causal, kv, dname):
 
 
 def _function_row(failures, si, label, shape, kv, dname):
-    """Gradients of `dot_product_attention(q, k, v, causal=True, kv_len=...)`
-    on (B, S, H, D) tensors that require them: the path the Llama's training
-    forward takes, which runs `flash_attention`'s autograd Function (K1, then
-    delta from autograd's dO and K4a and K4b). Each of dq, dk and dv must lie
-    within K4_TOL of `flash_bwd_reference` run on the Function's own output
-    o, the plain lse and delta = rowsum(dO o): the two sides then differ by
-    K4's roundings only, and lse by K1's (1e-4, far under 2^-8). The call
-    must launch K1, K4a and K4b once each."""
+    """Gradients of the flash Function with causal=True and kv_len, twice:
+    through `dot_product_attention(q, k, v, causal=True, kv_len=...)` on
+    (B, S, H, D) tensors that require them (the path the Llama's training
+    forward takes; the kernels see (B, S, H, D) views), and through
+    `flash_attention` on contiguous (B, H, S, D) tensors. Each run launches
+    K1, delta from autograd's dO and K4 (`flash_bwd_cuda`). Each of dq, dk
+    and dv must lie within K4_TOL of `flash_bwd_reference` run on the
+    Function's own output o, the plain lse and delta = rowsum(dO o): the two
+    sides then differ by K4's roundings only, and lse by K1's (1e-4, far
+    under 2^-8). Each run must launch K1 once and K4 once on the expected
+    path (k4_path_expected), and K4a and K4b not at all."""
     import torch
 
     from instructany2pix_tpu_torch.ops import attention as attn
@@ -1019,45 +1109,67 @@ def _function_row(failures, si, label, shape, kv, dname):
     q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
     kv_len = _kv_tensor(kv)
     scale = d**-0.5
-    counters = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
-    before = [c.launches for c in counters]
-    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
-    with torch.enable_grad():
-        o = attn.dot_product_attention(qr, kr, vr, causal=True, kv_len=kv_len)
-        grads = torch.autograd.grad(o, (qr, kr, vr), g)
-    launched = [c.launches - n for c, n in zip(counters, before)]
-    qt, kt, vt, gt, ot = (x.detach().transpose(1, 2) for x in (q, k, v, g, o))
+    expected = k4_path_expected(dname, d)
+    counters = (fa.flash_fwd_cuda, fa.flash_bwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
     _, lse = fa._reference_attention(qt, kt, vt, True, scale, True, kv_len)
-    delta = fa.flash_delta(gt, ot)
-    ref = fa.flash_bwd_reference(qt, kt, vt, ot, lse, gt, True, scale, kv_len, delta)
-    sigmas = k4_sigmas(fa, qt, kt, vt, gt, lse, delta, True, scale, kv_len)
-    readings = {n: _reading(x.transpose(1, 2), r, sg, K4_TOL[dname])
-                for n, x, r, sg in zip(("dq", "dk", "dv"), grads, ref, sigmas)}
     row = {"label": label, "dtype": dname, "shape_bshd": list(shape), "kv_len": list(kv),
-           "launches_k1_k4a_k4b": launched,
-           "ok": all(r["ok"] for r in readings.values()) and launched == [1, 1, 1]}
-    for n, r in readings.items():
-        row[f"err_{n}"], row[f"of_limit_{n}"] = r["err"], r["of_limit"]
-    row["of_limit"] = max(r["of_limit"] for r in readings.values())
-    if not row["ok"]:
-        failures.append(f"flash Function {label} {dname}: " + ", ".join(
-            f"|{n}| {r['err']:.3g} = {r['of_limit']:.3g} of its limit" for n, r in readings.items())
-            + f"; launches K1/K4a/K4b {launched} (expected [1, 1, 1])")
-    log(f"flash Function {label:18s} {dname:8s} bshd {str(shape):20s} kv_len={kv} of limit: "
-        + " ".join(f"{n} {r['of_limit']:.3f}" for n, r in readings.items())
-        + f" launches {launched}" + (" ok" if row["ok"] else " FAIL"))
-    del q, k, v, g, qr, kr, vr, o, grads, ref, sigmas, lse, delta
+           "path_expected": expected, "ok": True}
+    def run(layout):
+        """(o, dq, dk, dv), all (B, H, S, D)."""
+        if layout == "bshd":
+            qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+            with torch.enable_grad():
+                o = attn.dot_product_attention(qr, kr, vr, causal=True, kv_len=kv_len)
+                grads = torch.autograd.grad(o, (qr, kr, vr), g)
+            return tuple(x.detach().transpose(1, 2) for x in (o, *grads))
+        qr, kr, vr = (x.contiguous().requires_grad_() for x in (qt, kt, vt))
+        with torch.enable_grad():
+            o = fa.flash_attention(qr, kr, vr, True, scale, kv_len=kv_len)
+            grads = torch.autograd.grad(o, (qr, kr, vr), gt.contiguous())
+        return (o.detach(), *grads)
+
+    for layout in ("bshd", "bhsd"):
+        before = [c.launches for c in counters]
+        (ot, *grads), paths = k4_paths_of(fa, lambda: run(layout))
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        delta = fa.flash_delta(gt, ot)
+        ref = fa.flash_bwd_reference(qt, kt, vt, ot, lse, gt, True, scale, kv_len, delta)
+        sigmas = k4_sigmas(fa, qt, kt, vt, gt, lse, delta, True, scale, kv_len)
+        readings = {n: _reading(x, r, sg, K4_TOL[dname])
+                    for n, x, r, sg in zip(("dq", "dk", "dv"), grads, ref, sigmas)}
+        ok = (all(r["ok"] for r in readings.values()) and launched == [1, 1, 0, 0]
+              and paths == {expected: 1})
+        row["ok"] &= ok
+        row[layout] = {"launches_k1_k4_k4a_k4b": launched, "k4_paths": paths}
+        for n, r in readings.items():
+            row[layout][f"err_{n}"], row[layout][f"of_limit_{n}"] = r["err"], r["of_limit"]
+        if not ok:
+            failures.append(f"flash Function {label} {dname} {layout}: " + ", ".join(
+                f"|{n}| {r['err']:.3g} = {r['of_limit']:.3g} of its limit"
+                for n, r in readings.items())
+                + f"; launches K1/K4/K4a/K4b {launched} (expected [1, 1, 0, 0]), K4 paths "
+                f"{paths} (expected {{{expected!r}: 1}})")
+        log(f"flash Function {label:18s} {dname:8s} {layout} {str(shape):20s} kv_len={kv} of "
+            "limit: " + " ".join(f"{n} {r['of_limit']:.3f}" for n, r in readings.items())
+            + f" launches K1/K4/K4a/K4b {launched} K4 {paths}" + (" ok" if ok else " FAIL"))
+        del ot, grads, ref, sigmas, delta
+    for n in ("dq", "dk", "dv"):
+        row[f"err_{n}"] = max(row[lay][f"err_{n}"] for lay in ("bshd", "bhsd"))
+        row[f"of_limit_{n}"] = max(row[lay][f"of_limit_{n}"] for lay in ("bshd", "bhsd"))
+    row["of_limit"] = max(row[f"of_limit_{n}"] for n in ("dq", "dk", "dv"))
+    del q, k, v, g, lse
     return row
 
 
 def _empty_calls(failures):
-    """K1, K4a and K4b on empty inputs (no query rows; no key rows): zeros
-    or empty outputs and no launch counted."""
+    """K1, K4, K4a and K4b on empty inputs (no query rows; no key rows):
+    zeros or empty outputs and no launch counted."""
     import torch
 
     from instructany2pix_tpu_torch.ops import flash_attention as fa
 
-    counters = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    counters = (fa.flash_fwd_cuda, fa.flash_bwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
     before = [c.launches for c in counters]
     ok = True
     for sq, sk in ((0, 64), (64, 0)):
@@ -1066,23 +1178,27 @@ def _empty_calls(failures):
         stats = torch.zeros(1, 2, sq, device="cuda")
         dq = fa.flash_bwd_dq_cuda(q, k, v, g, stats, stats, True, 0.1)
         dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, g, stats, stats, True, 0.1)
+        whole = fa.flash_bwd_cuda(q, k, v, g, stats, stats, True, 0.1)
         if sq == 0:
             fa.flash_fwd_cuda(q, k, v, True, 0.1, return_lse=True)
-        ok &= not (dq.any() or dk.any() or dv.any())
+        ok &= not (dq.any() or dk.any() or dv.any() or any(x.any() for x in whole))
     counted = [c.launches - n for c, n in zip(counters, before)]
-    if counted != [0, 0, 0] or not ok:
-        failures.append(f"empty calls: launches counted K1/K4a/K4b {counted}, zero outputs {ok}")
-    log(f"empty calls: launches counted K1/K4a/K4b {counted}, zero outputs {ok}")
+    if counted != [0, 0, 0, 0] or not ok:
+        failures.append(f"empty calls: launches counted K1/K4/K4a/K4b {counted}, zero outputs "
+                        f"{ok}")
+    log(f"empty calls: launches counted K1/K4/K4a/K4b {counted}, zero outputs {ok}")
     return {"launches_counted": counted, "zero_outputs": ok}
 
 
 def phase_k4(failures, timed=True):
-    """K1 with kv_len against the plain masked path at K1_KV_SHAPES; K4a and
-    K4b against the plain backward at every K4_SHAPES entry, on contiguous
+    """K1 with kv_len against the plain masked path at K1_KV_SHAPES; K4 (the
+    whole backward, and where it is their route K4a and K4b on their own)
+    against the plain backward at every K4_SHAPES entry, on contiguous
     inputs and on the (B, S, H, D) views the router passes (K4_TOL); with
-    `timed`, K4a, K4b, the plain backward and SDPA's backward timed with
-    CUDA events beside each kernel's bound. Then the autograd Function's
-    gradients through the router at FN_SHAPES and the empty calls."""
+    `timed`, the same, the plain backward and SDPA's backward timed with
+    CUDA events beside the bounds.
+    Then the autograd Function's gradients at FN_SHAPES and the empty
+    calls."""
     import torch
 
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
@@ -1105,33 +1221,15 @@ def phase_k4(failures, timed=True):
 
 
 def _build_faults(src_name, faults):
-    """Write and build each broken copy of csrc/<src_name>.cu, or of the
-    csrc/ header its entry names, in a directory of its own under
-    build/faults (the source's `#include "..."` finds a patched header there
-    first, the others in csrc/); returns {fault: library path}."""
+    """Build each broken copy of csrc/<src_name>.cu, or of the csrc/ header
+    its entry names, under build/faults/<src_name>/<fault>; returns
+    {fault: library path}."""
     from instructany2pix_tpu_torch.ops import _build
 
-    src = (_build.CSRC / f"{src_name}.cu").read_text()
-    procs = {}
-    for name, (_, old, new, *where) in faults.items():
-        target = where[0] if where else f"{src_name}.cu"
-        text = (_build.CSRC / target).read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"fault {name}: its source text is not in {target} exactly once")
-        out_dir = _build.BUILD_DIR.parent / "faults" / f"{src_name}_{name}"
-        out_dir.mkdir(parents=True, exist_ok=True)
-        cu = out_dir / f"{src_name}.cu"
-        cu.write_text(src)
-        (out_dir / target).write_text(text.replace(old, new))
-        so = cu.with_suffix(".so")
-        procs[name] = (so, subprocess.Popen(
-            _build.nvcc_command(cu, so), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for fault {name}:\n{out}")
-    return {name: so for name, (so, _) in procs.items()}
+    copies = {name: {where[0] if where else f"{src_name}.cu": [(old, new)]}
+              for name, (_, old, new, *where) in faults.items()}
+    built = _build.build_copies(src_name, copies, _build.BUILD_DIR.parent / "faults" / src_name)
+    return {name: so for name, (so, _) in built.items()}
 
 
 def planted_faults(failures):
@@ -1700,9 +1798,21 @@ TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 4, 2048, 5
 TRAIN_ROW_CHARS = (2400, 1650, 1290, 750)  # rows of about 2650 (cut to 2048), 1900, 1540, 1000 tokens
 
 
+# the launch counters a training run reads: K1; K4 (whole backward calls),
+# also by the path each took; K4a and K4b called on their own; K2; K3
+COUNT_KEYS = ("k1", "k4", "k4_wgmma", "k4_mma", "k4_fma", "k4a", "k4b", "k2", "k3")
+
+
 def _counts(fa, Q):
-    return (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
-            fa.flash_bwd_dkv_cuda.launches, Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches)
+    by = fa.flash_bwd_cuda.launches_by_path
+    return (fa.flash_fwd_cuda.launches, fa.flash_bwd_cuda.launches, by["wgmma"], by["mma"],
+            by["fma"], fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
+            Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches)
+
+
+def _launches(**nonzero):
+    """Launch counts keyed as COUNT_KEYS, 0 where not given."""
+    return {k: nonzero.get(k, 0) for k in COUNT_KEYS}
 
 
 def phase_train(failures):
@@ -1710,8 +1820,9 @@ def phase_train(failures):
     with Vicuna-7B's widths, TRAIN_LAYERS decoder layers, bf16 parameters and
     moments, remat "dots", batch 4 x max_length 2048 from the port's collate
     over a synthetic dataset; TRAIN_STEPS steps, a preview and a checkpoint.
-    Every step: finite losses and grad_norm, and exact K1/K4a/K4b launches;
-    K2 and K3 stay at 0. Then one step profiled by kernel class."""
+    Every step: finite losses and grad_norm, and exact K1 and K4 launches,
+    each K4 call on the fused wgmma path; K4a, K4b, K2 and K3 stay at 0.
+    Then one step profiled by kernel class."""
     import dataclasses
     import os
     import tempfile
@@ -1734,8 +1845,8 @@ def phase_train(failures):
         base.llama, num_layers=TRAIN_LAYERS, remat=True, remat_policy="dots"))
     L = cfg.llama.num_layers
     # per step with remat: K1 once in the forward and once more when the
-    # backward recomputes each checkpointed layer; K4a and K4b once per layer
-    per_step = {"k1": 2 * L, "k4a": L, "k4b": L, "k2": 0, "k3": 0}
+    # backward recomputes each checkpointed layer; K4 once per layer
+    per_step = _launches(k1=2 * L, k4=L, k4_wgmma=L)
     train_cfg = TrainConfig(total_steps=TRAIN_STEPS)
     out = {"layers": L, "of_layers": base.llama.num_layers, "batch": TRAIN_BATCH,
            "max_length": TRAIN_LEN, "steps": TRAIN_STEPS, "per_step_expected": per_step}
@@ -1764,11 +1875,10 @@ def phase_train(failures):
             torch.cuda.synchronize()
             now = time.perf_counter()
             c = _counts(fa, Q)
-            prev = steps[-1]["counts"] if steps else (0,) * 5
+            prev = steps[-1]["counts"] if steps else (0,) * len(COUNT_KEYS)
             vals = {k: float(v) for k, v in metrics.items()}
             steps.append({"step": step_i + 1, "seconds": now - t_last[0], "counts": c,
-                          "launches": dict(zip(("k1", "k4a", "k4b", "k2", "k3"),
-                                               [a - b for a, b in zip(c, prev)])),
+                          "launches": dict(zip(COUNT_KEYS, [a - b for a, b in zip(c, prev)])),
                           "metrics": vals,
                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
             t_last[0] = now
@@ -1785,7 +1895,7 @@ def phase_train(failures):
                            preview_steps=TRAIN_STEPS, preview_dir=os.path.join(d, "preview"),
                            device="cuda", params=params, step_hook=hook)
         torch.cuda.synchronize()
-        run = dict(zip(("k1", "k4a", "k4b", "k2", "k3"), _counts(fa, Q)))
+        run = dict(zip(COUNT_KEYS, _counts(fa, Q)))
         out["k1_by_path"] = dict(fa.flash_fwd_cuda.launches_by_path)
         # the preview after the last step runs one forward without remat
         run_expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
@@ -1877,8 +1987,8 @@ def phase_tiny_train(failures):
             runs[dev] = (hist, convert.to_tree(state["params"]),
                          [a - b for a, b in zip(_counts(fa, Q), before)])
         L = cfg.llama.num_layers
-        launches = dict(zip(("k1", "k4a", "k4b", "k2", "k3"), runs["cuda"][2]))
-        expected = {"k1": 3 * 2 * L, "k4a": 3 * L, "k4b": 3 * L, "k2": 0, "k3": 0}
+        launches = dict(zip(COUNT_KEYS, runs["cuda"][2]))
+        expected = _launches(k1=3 * 2 * L, k4=3 * L, k4_fma=3 * L)
         worst = {}
         for i, (mc, mg) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
             for k in mc:
@@ -1948,8 +2058,8 @@ def _tiny_bf16_grads(failures, cfg, batch_np):
     gradient does: |g_card - g_f32| <= 2 |g_cpu - g_f32| + 2^-8 |g_f32| in
     L2 norm (two independent draws of the same rounding noise, plus one
     bf16 rounding). A wiring fault (delta, the recompute, the scale) moves a
-    gradient by its own size. Also: K1 twice (forward and recompute) and
-    K4a and K4b once per layer."""
+    gradient by its own size. Also: K1 twice (forward and recompute) and K4
+    once per layer, on the fused wgmma path."""
     import copy
     import dataclasses
 
@@ -1986,8 +2096,8 @@ def _tiny_bf16_grads(failures, cfg, batch_np):
         loss_card, g_card, counts = grads(params, "cuda")
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
-    launches = dict(zip(("k1", "k4a", "k4b", "k2", "k3"), counts))
-    expected = {"k1": 2 * L, "k4a": L, "k4b": L, "k2": 0, "k3": 0}
+    launches = dict(zip(COUNT_KEYS, counts))
+    expected = _launches(k1=2 * L, k4=L, k4_wgmma=L)
     worst, bad = 0.0, []
     for n, ref in g32.items():
         e_card = float((g_card[n] - ref).norm())
@@ -2026,6 +2136,8 @@ def _kernel_class(name):
     n = name.lower()
     if "relpos2d" in n:
         return "k3"
+    if "flash_bwd_wgmma" in n:
+        return "k4"
     if "bwd_dq" in n:
         return "k4a"
     if "bwd_dkv" in n:
@@ -2385,29 +2497,47 @@ def main(argv=None) -> int:
     }
     k4head = next(r for r in k4["k4"] if r["label"] == "llama train")
     k4rows = [{k: r.get(k) for k in (
-        "label", "dtype", "path", "shape", "sk", "causal", "kv_len", "ms_dq", "ms_dkv", "plain_ms",
-        "library_ms", "bound_ms_dq", "bound_by_dq", "bound_ms_dkv", "bound_by_dkv", "err_dq",
-        "err_dk", "err_dv", "of_limit_dq", "of_limit_dk", "of_limit_dv")} for r in k4["k4"]]
+        "label", "dtype", "path", "shape", "sk", "causal", "kv_len", "ms", "ms_bshd",
+        "ms_with_delta", "ms_dq", "ms_dkv", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "bound_ms_dq", "bound_ms_dkv", "tflops", "err_dq", "err_dk", "err_dv", "of_limit_dq",
+        "of_limit_dk", "of_limit_dv", "of_limit_fused", "of_limit_two_kernel")} for r in k4["k4"]]
 
-    def k4_entry(name, key, short, line, out_key, ms_key):
+    def per_path(key):
+        return {"text2img": sum(r[key] for r in full["requests"]), "forward_llm": edit[key],
+                "edit_call": edit["call_" + key], "subject_call": subject[key],
+                "train": train["launches"][key.split("_")[0]]}
+
+    k4_paths = per_path("k4_launches")
+
+    def k4_entry(name, line, out_key):
+        """K4a and K4b keep their entries: both name the fused kernel, which
+        replaces both TPU kernels, with its launches and times."""
         bf16 = [r for r in k4["k4"] if r["dtype"] == "bfloat16"]
-        paths = {"text2img": sum(r[key] for r in full["requests"]), "forward_llm": edit[key],
-                 "edit_call": edit["call_" + key], "subject_call": subject[key],
-                 "train": train["launches"][short]}
         return {
             "name": name, "route": "cuda",
-            "source": "instructany2pix_tpu_torch/csrc/flash_bwd.cu",
+            "source": "instructany2pix_tpu_torch/csrc/flash_bwd_sm90.cuh",
+            "kernel": "sm90::bwd::flash_bwd_wgmma_kernel through ia2p_flash_bwd "
+                      "(csrc/flash_bwd.cu), the wgmma path of flash_bwd_cuda",
             "replaces": f"instructany2pix_tpu/ops/flash_attention.py:{line}",
-            "launches": sum(paths.values()), "launches_by_path": paths,
+            "launches": sum(k4_paths.values()), "launches_by_path": k4_paths,
+            "launches_by_kernel_path": {
+                "train": {p: train["launches"][f"k4_{p}"] for p in ("wgmma", "mma", "fma")}},
+            "two_kernel_launches": {"k4a": per_path("k4a_launches"),
+                                    "k4b": per_path("k4b_launches")},
             "max_abs_err": max(max(r[f"err_{o}"] for o in out_key) for r in bf16),
             "max_abs_err_fp32": max(max(r[f"err_{o}"] for o in out_key) for r in k4["k4"]
                                     if r["dtype"] == "float32"),
             "max_err_of_limit": max(max(r[f"of_limit_{o}"] for o in out_key)
                                     for r in k4["k4"] + k4["function"]),
-            "ms": k4head[f"ms_{ms_key}"], "ms_bshd": k4head[f"ms_{ms_key}_bshd"],
+            "ms": k4head["ms"], "ms_bshd": k4head["ms_bshd"],
+            "ms_with_delta": k4head["ms_with_delta"],
+            "ms_note": "the whole backward (dq, dk and dv) in one launch, the dq accumulator's "
+                       "zeroing and cast included; ms_with_delta also computes delta",
             "plain_ms": k4head["plain_ms"],
             "plain_call": "flash_bwd_reference: the whole plain backward (dq, dk and dv)",
-            "bound_ms": k4head[f"bound_ms_{ms_key}"], "bound_by": k4head[f"bound_by_{ms_key}"],
+            "bound_ms": k4head["bound_ms"], "bound_by": k4head["bound_by"],
+            "bound_note": "5 products of 2 D flops per visible pair, or q, k, v, dO, lse and "
+                          "delta read and dq, dk, dv written once",
             "library_ms": k4head["library_ms"],
             "library_call": "torch.autograd.grad through F.scaled_dot_product_attention("
                             "is_causal=True), backward only: dq, dk and dv in one call",
@@ -2415,8 +2545,8 @@ def main(argv=None) -> int:
             "shapes": k4rows,
         }
 
-    k4a = k4_entry("flash_bwd_dq", "k4a_launches", "k4a", 321, ("dq",), "dq")
-    k4b = k4_entry("flash_bwd_dkv", "k4b_launches", "k4b", 367, ("dk", "dv"), "dkv")
+    k4a = k4_entry("flash_bwd_dq", 321, ("dq",))
+    k4b = k4_entry("flash_bwd_dkv", 367, ("dk", "dv"))
     kernels = [k1, k2, k3, k4a, k4b]
     result = {"card": card, "k2_shapes": qrows, "k4": k4, "full_width": full, "train": train,
               "tiny_reference": tiny, "tiny_train": tiny_train, "seconds": seconds}

@@ -1,11 +1,10 @@
-// K4: the flash-attention backward for NVIDIA Hopper (sm_90a), in two
-// kernels: K4a writes dq, K4b writes dk and dv.
+// K4: the flash-attention backward for NVIDIA Hopper (sm_90a).
 //
-// K4a replaces instructany2pix_tpu/ops/flash_attention.py
-// `_flash_bwd_dq_kernel` and K4b `_flash_bwd_dkv_kernel` (both launched by
-// `_flash_bwd`). Same function, from the forward's saved float32 logsumexp
-// (lse) and delta = rowsum(dO * O) (float32, computed by the caller as the
-// JAX wrapper does outside Pallas):
+// K4 replaces instructany2pix_tpu/ops/flash_attention.py
+// `_flash_bwd_dq_kernel` (K4a, dq) and `_flash_bwd_dkv_kernel` (K4b, dk and
+// dv), both launched by `_flash_bwd`. Same function, from the forward's
+// saved float32 logsumexp (lse) and delta = rowsum(dO * O) (float32,
+// computed by the caller as the JAX wrapper does outside Pallas):
 //   * logits recomputed as (q . k) * scale in float32 from input-dtype
 //     operands;
 //   * p = exp(s - lse), zero where masked: the key tail (col < kv_len[b]
@@ -15,45 +14,55 @@
 //   * dq = ds . k, dk = ds^T . q, dv = p^T . dO, with ds and p rounded to
 //     the input dtype before each product and float32 accumulators; the
 //     outputs are written in the input dtype;
-//   * K4a's key loop stops at the last key its rows can see; K4b's query
-//     loop starts at the first query tile that can see its keys under the
-//     causal rule, and a key block wholly past kv_len[b] writes zeros.
-//
-// The TPU kernels keep a whole (b, h)'s K/V (K4a) or Q/dO (K4b) resident
-// in VMEM and walk a sequential grid. Here blocks run in parallel in no
-// order: a block owns 64 query rows (K4a) or 64 key rows (K4b), keeps what
-// it owns in registers or shared memory, and streams the other side
-// through shared memory in tiles of 32 rows; lse and delta are read per
-// row. Any strides with a unit last dim are taken, so the router's
-// (B, S, H, D) views need no copy.
+//   * the query loop of a key block starts at the first query tile that
+//     can see its keys under the causal rule, and a key block wholly past
+//     kv_len[b] writes zeros.
 //
 // What bounds it here: at the Llama training shape ((4,32,2048,128) bf16,
-// causal) K4a does 3 products of S^2 D per (b, h) and K4b 4, halved by
-// causality: 0.21 and 0.28 ms of the tensor cores at 989 TFLOP/s against
-// ~0.03 ms of HBM traffic, so the bound is arithmetic.
+// causal) one backward is 5 products of S^2 D per (b, h), halved by
+// causality: 0.35 ms of the tensor cores at 989 TFLOP/s against ~0.06 ms
+// of HBM traffic, so the bound is arithmetic.
 //
-// Two paths per kernel, chosen per call:
-//   * bf16 with head_dim 64, 80 or 128 and 16-byte aligned rows: warp-level
-//     mma.sync m16n8k16 with float32 accumulators (flash_mma.cuh). Each of a
-//     block's 4 warps owns 16 of its rows. K4a keeps its q and dO fragments
-//     in registers (the A operands of q.k^T and dO.v^T); K4b keeps its keys
-//     and values in shared memory, since its two D-wide float32 accumulators
-//     (dk and dv: 128 registers a thread at D = 128) leave no room for them
-//     in registers. The second product of each kernel takes ds (or p) from
-//     registers as its A operand and reads its B operand (k, q or dO) from
-//     the row-major tile with two 16-bit loads per register; rows are
-//     padded by 8 elements so those loads hit distinct banks. wgmma, TMA and
-//     one fused kernel are later work;
-//   * everything else (float32, other head dims up to 256, unaligned
-//     strides): float32 fma on the CUDA cores. A block owns 16 rows, streams
-//     16-row tiles through shared memory, computes the 16 x 16 p and ds
-//     tiles (two pairs a thread) into shared memory, then each thread
-//     accumulates D/8 elements of its row of the output.
+// `ia2p_flash_bwd` computes dq, dk and dv in one call and reports the path
+// it took through `ia2p_flash_bwd_last_path`:
+//   * bf16 with head_dim 64 or 128, 16-byte aligned rows and a float32 dq
+//     accumulator: `sm90::bwd::flash_bwd_wgmma_kernel` in
+//     flash_bwd_sm90.cuh, one fused kernel on TMA and wgmma that computes p
+//     once per (query tile, key block) and adds dq into the accumulator by
+//     TMA reduce-adds (sm_90a only);
+//   * otherwise two kernels, K4a (dq) then K4b (dk, dv), also reachable on
+//     their own through `ia2p_flash_bwd_dq` and `ia2p_flash_bwd_dkv`. The TPU
+//     kernels keep a whole (b, h)'s K/V (K4a) or Q/dO (K4b) resident in VMEM
+//     and walk a sequential grid; here blocks run in parallel in no order: a
+//     block owns 64 query rows (K4a) or 64 key rows (K4b), keeps what it
+//     owns in registers or shared memory, and streams the other side
+//     through shared memory in tiles of 32 rows; lse and delta are read per
+//     row. Any strides with a unit last dim are taken, so the router's
+//     (B, S, H, D) views need no copy. Each recomputes p: 7 products where
+//     the fused kernel does 5. Two paths per kernel:
+//       - bf16 with head_dim 80 (a 160-byte row is not one 128-byte TMA
+//         box) and 16-byte aligned rows: warp-level mma.sync m16n8k16 with
+//         float32 accumulators (flash_mma.cuh). Each of a block's 4 warps
+//         owns 16 of its rows. K4a keeps its q and dO fragments in registers
+//         (the A operands of q.k^T and dO.v^T); K4b keeps its keys and
+//         values in shared memory, since its two D-wide float32 accumulators
+//         (dk and dv: 80 registers a thread) leave no room for them in
+//         registers. The second product of each kernel takes ds (or p) from
+//         registers as its A operand and reads its B operand (k, q or dO)
+//         from the row-major tile with two 16-bit loads per register; rows
+//         are padded by 8 elements so those loads hit distinct banks;
+//       - everything else (float32, other head dims up to 256, unaligned
+//         strides, and K4a or K4b called on its own at bf16 head_dim 64 or
+//         128): float32 fma on the CUDA cores. A block owns 16 rows,
+//         streams 16-row tiles through shared memory, computes the 16 x 16
+//         p and ds tiles (two pairs a thread) into shared memory, then each
+//         thread accumulates D/8 elements of its row of the output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bwd_sm90.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -232,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_mma_kernel(BwdArgs a) {
 // ------------------------------------------------------------------------
 // K4b, tensor-core path: a block owns 64 key rows, 16 per warp, and walks
 // 32-query tiles of q, dO, lse and delta. Its keys and values sit in
-// dynamic shared memory (52 KB at D = 128 with the tiles).
+// dynamic shared memory (33 KB at D = 80 with the tiles).
 
 template <int D>
 size_t dkv_mma_smem() {
@@ -639,6 +648,58 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* g, co
   return a;
 }
 
+// Which path a call of `ia2p_flash_bwd` took, per calling thread.
+enum Path { kPathFma = 0, kPathMma = 1, kPathWgmma = 2 };
+thread_local int last_path = kPathFma;
+
+// K4a on `a` (dq in a.dq with strides a.ob/oh/os); *path: the one taken.
+cudaError_t run_dq(int dtype, BwdArgs a, int B, cudaStream_t s, int* path) {
+  const dim3 mma_grid(blocks(a.Sq, kRows), B * a.H);
+  *path = kPathMma;
+  if (dtype == 1 && mma_aligned(a, false)) {
+    switch (a.D) {
+      case 80: return launch(bwd_dq_mma_kernel<80>, mma_grid, 0, s, a);
+      default: break;
+    }
+  }
+  *path = kPathFma;
+  const dim3 grid(blocks(a.Sq, kSRows), B * a.H);
+  switch (dtype) {
+    case 0: return launch(bwd_dq_fma_kernel<float>, grid, dq_fma_smem(a.D), s, a);
+    case 1: return launch(bwd_dq_fma_kernel<__nv_bfloat16>, grid, dq_fma_smem(a.D), s, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K4b on `a` (dk in a.dk with strides a.ob/oh/os, dv in a.dv with a.o2*).
+cudaError_t run_dkv(int dtype, BwdArgs a, int B, cudaStream_t s, int* path) {
+  const dim3 mma_grid(blocks(a.Sk, kRows), B * a.H);
+  *path = kPathMma;
+  if (dtype == 1 && mma_aligned(a, true)) {
+    switch (a.D) {
+      case 80: return launch(bwd_dkv_mma_kernel<80>, mma_grid, dkv_mma_smem<80>(), s, a);
+      default: break;
+    }
+  }
+  *path = kPathFma;
+  const dim3 grid(blocks(a.Sk, kSRows), B * a.H);
+  switch (dtype) {
+    case 0: return launch(bwd_dkv_fma_kernel<float>, grid, dkv_fma_smem(a.D), s, a);
+    case 1: return launch(bwd_dkv_fma_kernel<__nv_bfloat16>, grid, dkv_fma_smem(a.D), s, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The fused kernel takes bf16 at head_dim 64 and 128 with the mma.sync
+// kernels' alignment and a dq accumulator its TMA map can address (16-byte
+// aligned, strides a multiple of 16 bytes).
+bool wgmma_ready(const BwdArgs& dq, const BwdArgs& dkv, const float* dq_acc,
+                 const int64_t* acc_st) {
+  return dq_acc != nullptr && (dq.D == 64 || dq.D == 128) && mma_aligned(dq, false) &&
+         mma_aligned(dkv, true) && reinterpret_cast<uintptr_t>(dq_acc) % 16 == 0 &&
+         ((acc_st[0] | acc_st[1] | acc_st[2]) % 4) == 0;
+}
+
 }  // namespace
 
 // K4a. dtype: 0 float32, 1 bfloat16; q, k, v, g (dO) and dq share it.
@@ -652,22 +713,8 @@ extern "C" int ia2p_flash_bwd_dq(int dtype, const void* q, const void* k, const 
   if (D < 1 || D > 8 * kSMaxDT || B * H < 1) return cudaErrorInvalidValue;
   BwdArgs a = make_args(q, k, v, g, lse, delta, kv_len, H, Sq, Sk, D, strides, scale, causal);
   a.dq = dq;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 mma_grid(blocks(Sq, kRows), B * H);
-  if (dtype == 1 && mma_aligned(a, false)) {
-    switch (D) {
-      case 64: return launch(bwd_dq_mma_kernel<64>, mma_grid, 0, s, a);
-      case 80: return launch(bwd_dq_mma_kernel<80>, mma_grid, 0, s, a);
-      case 128: return launch(bwd_dq_mma_kernel<128>, mma_grid, 0, s, a);
-      default: break;
-    }
-  }
-  const dim3 grid(blocks(Sq, kSRows), B * H);
-  switch (dtype) {
-    case 0: return launch(bwd_dq_fma_kernel<float>, grid, dq_fma_smem(D), s, a);
-    case 1: return launch(bwd_dq_fma_kernel<__nv_bfloat16>, grid, dq_fma_smem(D), s, a);
-    default: return cudaErrorInvalidValue;
-  }
+  int path;
+  return run_dq(dtype, a, B, static_cast<cudaStream_t>(stream), &path);
 }
 
 // K4b. As K4a; strides: 18 int64, (b, h, s) of q, k, v, g, dk, dv.
@@ -681,20 +728,58 @@ extern "C" int ia2p_flash_bwd_dkv(int dtype, const void* q, const void* k, const
   a.dk = dk;
   a.dv = dv;
   a.o2b = strides[15], a.o2h = strides[16], a.o2s = strides[17];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 mma_grid(blocks(Sk, kRows), B * H);
-  if (dtype == 1 && mma_aligned(a, true)) {
-    switch (D) {
-      case 64: return launch(bwd_dkv_mma_kernel<64>, mma_grid, dkv_mma_smem<64>(), s, a);
-      case 80: return launch(bwd_dkv_mma_kernel<80>, mma_grid, dkv_mma_smem<80>(), s, a);
-      case 128: return launch(bwd_dkv_mma_kernel<128>, mma_grid, dkv_mma_smem<128>(), s, a);
-      default: break;
-    }
-  }
-  const dim3 grid(blocks(Sk, kSRows), B * H);
-  switch (dtype) {
-    case 0: return launch(bwd_dkv_fma_kernel<float>, grid, dkv_fma_smem(D), s, a);
-    case 1: return launch(bwd_dkv_fma_kernel<__nv_bfloat16>, grid, dkv_fma_smem(D), s, a);
-    default: return cudaErrorInvalidValue;
-  }
+  int path;
+  return run_dkv(dtype, a, B, static_cast<cudaStream_t>(stream), &path);
 }
+
+// The whole backward: dq, dk and dv. As K4a otherwise; strides: 24 int64,
+// (b, h, s) of q, k, v, g, dq, dk, dv and dq_acc. dq_acc is a zeroed float32
+// (B, H, Sq, D) accumulator or null: the fused wgmma kernel (bf16, head_dim
+// 64 or 128, aligned rows, dq_acc given) adds dq into it and leaves dq to
+// the caller, who rounds dq_acc once; the other paths write dq and do not
+// touch dq_acc. Returns the launch's cudaGetLastError() (0 on success), or
+// the error that refused it; `ia2p_flash_bwd_last_path` tells the path.
+extern "C" int ia2p_flash_bwd(int dtype, const void* q, const void* k, const void* v,
+                              const void* g, const float* lse, const float* delta,
+                              const int* kv_len, float* dq_acc, void* dq, void* dk, void* dv,
+                              int B, int H, int Sq, int Sk, int D, const int64_t* strides,
+                              float scale, int causal, void* stream) {
+  last_path = kPathFma;
+  if (D < 1 || D > 8 * kSMaxDT || B * H < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs a = make_args(q, k, v, g, lse, delta, kv_len, H, Sq, Sk, D, strides, scale, causal);
+  BwdArgs b = a;
+  a.dq = dq;
+  b.dk = dk;
+  b.dv = dv;
+  b.ob = strides[15], b.oh = strides[16], b.os = strides[17];
+  b.o2b = strides[18], b.o2h = strides[19], b.o2s = strides[20];
+  if (dtype == 1 && wgmma_ready(a, b, dq_acc, strides + 21)) {
+    last_path = kPathWgmma;
+    sm90::bwd::Params p{};
+    p.lse = lse;
+    p.delta = delta;
+    p.dk = static_cast<__nv_bfloat16*>(dk);
+    p.kb = b.ob, p.kh = b.oh, p.ks = b.os;
+    p.dv = static_cast<__nv_bfloat16*>(dv);
+    p.vb = b.o2b, p.vh = b.o2h, p.vs = b.o2s;
+    p.kv_len = kv_len;
+    p.B = B, p.H = H, p.Sq = Sq, p.Sk = Sk;
+    p.scale = scale;
+    p.causal = causal;
+    return sm90::bwd::dispatch({q, a.qb, a.qh, a.qs}, {k, a.kb, a.kh, a.ks}, {v, a.vb, a.vh, a.vs},
+                               {g, a.gb, a.gh, a.gs}, dq_acc, strides + 21, p, B, D, s);
+  }
+  // K4a's and K4b's alignment checks see different outputs: the call
+  // reports the lower of their two paths (fma if either took fma).
+  int dq_path = kPathFma, dkv_path = kPathFma;
+  cudaError_t err = run_dq(dtype, a, B, s, &dq_path);
+  last_path = dq_path;
+  if (err != cudaSuccess) return err;
+  err = run_dkv(dtype, b, B, s, &dkv_path);
+  last_path = dq_path < dkv_path ? dq_path : dkv_path;
+  return err;
+}
+
+// 0 fma, 1 mma.sync, 2 wgmma: the path of this thread's last `ia2p_flash_bwd`.
+extern "C" int ia2p_flash_bwd_last_path() { return last_path; }

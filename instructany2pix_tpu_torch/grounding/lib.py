@@ -110,12 +110,12 @@ def build_segmentator(ckpt_dir: str = "ckpts/gdino"):
     `sam_vit_h_4b8939.pth` and `gdino.pth` there: the box-fill segmentor and
     the whole-image grounder. With them: refused, since the port loads the
     JAX package's parameter trees only (`convert.sam`, `convert.gdino`);
-    loading torch checkpoints is ROADMAP Queue 1, item 10."""
+    loading torch checkpoints is ROADMAP Queue 1, item 2."""
     sam_path = os.path.join(ckpt_dir, "sam_vit_h_4b8939.pth")
     dino_path = os.path.join(ckpt_dir, "gdino.pth")
     if os.path.exists(sam_path) and os.path.exists(dino_path):
         raise NotImplementedError(
             f"{sam_path} and {dino_path}: loading torch checkpoints is not ported yet "
-            "(ROADMAP Queue 1, item 10); build the segmentor and grounder from JAX trees "
+            "(ROADMAP Queue 1, item 2); build the segmentor and grounder from JAX trees "
             "with convert.sam / convert.gdino and sam.make_segmentor / gdino.make_grounder")
     return box_fill_segmentor, cosine_fallback_grounder(None)

@@ -20,7 +20,7 @@ Training (`forward` without a cache, with the collator's right-padding
 `attention_mask`): the 2-D mask is turned into per-row key counts
 (`kv_len`) once per forward, after one host check that every row is a
 prefix of ones, and each layer's causal attention goes to the
-differentiable flash path (K1 forward, K4a/K4b backward on the card). Any
+differentiable flash path (K1 forward, K4 backward on the card). Any
 other mask keeps the plain masked path. With `cfg.remat` each decoder layer
 is checkpointed (`torch.utils.checkpoint`, non-reentrant): `remat_policy`
 "full" recomputes the whole layer in the backward, "dots" saves the outputs

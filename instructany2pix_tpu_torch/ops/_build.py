@@ -5,9 +5,10 @@ into `build/kernels/<name>-<hash>.so` at the root of the checkout (a
 directory git ignores). The hash covers the source, the `csrc/` headers it
 includes (`#include "..."`, also through another header) and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.
-Nothing is
-compiled when a module is imported; `load` compiles on the first launch
-and `build` compiles several sources in parallel, one `nvcc` each.
+Nothing is compiled when a module is imported; `load` compiles on the first
+launch and `build` compiles several sources in parallel, one `nvcc` each.
+`build_copies` builds patched copies of a source (the planted faults of
+chip_smoke.py, the variants of the kernel benchmarks).
 """
 
 from __future__ import annotations
@@ -100,6 +101,46 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         os.replace(tmp, so)  # atomic: a parallel builder sees all or nothing
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def patch(text: str, patches: Iterable[Tuple[str, str]], where: str) -> str:
+    """`text` with each (old, new) of `patches` applied in turn; every old
+    text must be in it exactly once."""
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise RuntimeError(f"a patch of {where} does not find its text there exactly once")
+        text = text.replace(old, new)
+    return text
+
+
+def build_copies(name: str, copies: Dict[str, Dict[str, List[Tuple[str, str]]]],
+                 under: Path) -> Dict[str, Tuple[Path, str]]:
+    """Build patched copies of `csrc/<name>.cu`, one `nvcc` each, all at
+    once. `copies` maps a copy's name to {file in csrc/: [(old, new), ...]}
+    (`patch`); copy c is written to under/c/, where the source's
+    `#include "..."` finds a patched header first and the others in csrc/.
+    Returns {copy: (library path, the compiler's report)}; raises with the
+    report of a copy that does not build."""
+    texts = {copy: {target: patch((CSRC / target).read_text(), files.get(target, ()),
+                                  f"{copy}: {target}") for target in {f"{name}.cu", *files}}
+             for copy, files in copies.items()}  # every patch applies before any build
+    procs = {}
+    for copy, files in texts.items():
+        out_dir = Path(under) / copy
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for target, text in files.items():
+            (out_dir / target).write_text(text)
+        so = out_dir / f"{name}.so"
+        procs[copy] = (so, subprocess.Popen(
+            nvcc_command(out_dir / f"{name}.cu", so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for copy, (so, proc) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} copy {copy}:\n{report}")
+        out[copy] = (so, report)
     return out
 
 

@@ -11,7 +11,7 @@ end. Routing on the H100:
   * so does a call with `kv_len` (int32 (B,): row b sees its first
     kv_len[b] keys) and no mask: the Llama training forward, whose
     collator mask is right padding under a causal mask. `flash_attention`
-    is differentiable, with K4a and K4b as its backward on the card. The
+    is differentiable, with K4 as its backward on the card. The
     JAX package sends such calls to XLA math as a mask; the function is
     the same (its plain path here builds that mask from kv_len);
   * masked calls, head_dim > 256 (the VAE's single-head d=512 attention)

@@ -1,19 +1,22 @@
-"""Flash attention: the forward (K1) with its backward (K4a, K4b) as one
-autograd Function, and the SAM rel-pos variant (K3); the CUDA kernels and
-their plain versions.
+"""Flash attention: the forward (K1) with its backward (K4) as one autograd
+Function, and the SAM rel-pos variant (K3); the CUDA kernels and their plain
+versions.
 
 `flash_attention` is the counterpart of the JAX package's public
 `flash_attention` and its `custom_vjp`. On a CUDA tensor the forward
 launches K1 (`csrc/flash_fwd.cu`) and, when an input needs a gradient, the
-backward launches K4a (dq) and K4b (dk, dv) from `csrc/flash_bwd.cu` after
-computing delta = rowsum(dO * O) in float32, as the JAX wrapper does
-outside Pallas. On a CPU tensor both directions run the plain versions:
-`_reference_attention` forward, `flash_bwd_reference` (the blocked
-backward of `_flash_bwd`) backward. `_bwd_recompute` is the counterpart of
-the JAX recompute backward, kept for comparison. An optional int32
-`kv_len` (B,) masks row b's keys at or past kv_len[b]: with `causal` it is
-the training collator's right-padding mask, the function the JAX package
-computes on its masked XLA path.
+backward computes delta = rowsum(dO * O) in float32, as the JAX wrapper does
+outside Pallas, and launches K4 (`flash_bwd_cuda`, `csrc/flash_bwd.cu`): one
+fused TMA/wgmma kernel for dq, dk and dv at bf16 head_dim 64 and 128 (dq
+added into a zeroed float32 accumulator that is rounded once after the
+kernel), K4a (dq) then K4b (dk, dv) otherwise. K4a and K4b also stay
+callable on their own (`flash_bwd_dq_cuda`, `flash_bwd_dkv_cuda`). On a CPU
+tensor both directions run the plain versions: `_reference_attention`
+forward, `flash_bwd_reference` (the blocked backward of `_flash_bwd`)
+backward. `_bwd_recompute` is the counterpart of the JAX recompute backward,
+kept for comparison. An optional int32 `kv_len` (B,) masks row b's keys at
+or past kv_len[b]: with `causal` it is the training collator's right-padding
+mask, the function the JAX package computes on its masked XLA path.
 
 `flash_attention_relpos2d` is the counterpart of the JAX function of that
 name, forward only: K1's tensor-core kernel with a bias policy
@@ -234,6 +237,13 @@ def _check_bwd(q, k, v, g, lse, delta):
                              f"{tuple(q.shape[:3])} on {q.device}")
 
 
+def _on_stream(device, fn, *args):
+    """fn(*args, stream) with `device` current and PyTorch's current stream
+    on it: where the ctypes entry points launch."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def _bwd_lib(name):
     from . import _build
 
@@ -262,12 +272,10 @@ def _launch_bwd(name, outs, q, k, v, g, lse, delta, causal, scale, kv_len) -> bo
     fn = _bwd_lib(name)
     strides = (ctypes.c_int64 * (3 * (4 + len(outs))))(
         *[s for t in (q, k, v, g, *outs) for s in t.stride()[:3]])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), kv_ptr, *[t.data_ptr() for t in outs],
-                b, h, sq, sk, d, ctypes.cast(strides, ctypes.c_void_p), float(scale),
-                int(bool(causal)), stream)
+    rc = _on_stream(q.device, fn, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(), kv_ptr,
+                    *[t.data_ptr() for t in outs], b, h, sq, sk, d,
+                    ctypes.cast(strides, ctypes.c_void_p), float(scale), int(bool(causal)))
     if rc != 0:
         raise RuntimeError(f"flash_attention backward: {name} launch failed with CUDA error {rc}")
     return True
@@ -276,8 +284,9 @@ def _launch_bwd(name, outs, q, k, v, g, lse, delta, causal, scale, kv_len) -> bo
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_len=None):
     """Launch K4a on PyTorch's current stream: dq from the saved lse and
     delta (float32, (B, H, Sq), contiguous). dq comes from
-    `torch.empty_like(q)`. Raises on input the kernel does not take and on
-    a refused launch."""
+    `torch.empty_like(q)`. mma.sync for bf16 at head_dim 80 with 16-byte
+    aligned rows, fma otherwise. Raises on input the kernel does not take
+    and on a refused launch."""
     dq = torch.empty_like(q)
     if _launch_bwd("ia2p_flash_bwd_dq", (dq,), q, k, v, g, lse, delta, causal, scale, kv_len):
         flash_bwd_dq_cuda.launches += 1
@@ -299,10 +308,75 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_le
 flash_bwd_dkv_cuda.launches = 0  # K4b launches in this process
 
 
+K4_PATHS = ("fma", "mma", "wgmma")  # ia2p_flash_bwd_last_path's codes
+WGMMA_BWD_HEAD_DIMS = (64, 128)  # bf16 head dims of the fused kernel
+
+
+def _fused_bwd_lib():
+    """K4's whole-backward entry point and the query of the path its last
+    call took."""
+    from . import _build
+
+    lib = _build.load("flash_bwd")
+    fn, path = lib.ia2p_flash_bwd, lib.ia2p_flash_bwd_last_path
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        path.argtypes = []
+        path.restype = ctypes.c_int
+    return fn, path
+
+
+def flash_bwd_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_len=None):
+    """Launch K4 on PyTorch's current stream: (dq, dk, dv) from the saved lse
+    and delta (float32, (B, H, Sq), contiguous), each from `torch.empty_like`
+    of its input. bf16 at head_dim 64 and 128 takes the fused wgmma kernel,
+    which adds dq into a float32 accumulator from `torch.zeros_like(q)` that
+    is rounded into dq once after the kernel; other calls take K4a then K4b
+    (mma.sync for bf16 at head_dim 80, fma otherwise). Raises on input the
+    kernels do not take and on a refused launch, with no fallback. Each call
+    that launches is counted once in `launches` and, by the path the kernel
+    reported (K4_PATHS), in `launches_by_path`; with no query or key rows the
+    gradients are zeros and nothing launches."""
+    _check_bwd(q, k, v, g, lse, delta)
+    kv_ptr = _check_kv_len(kv_len, q)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * h == 0 or sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    acc = (torch.zeros_like(q, dtype=torch.float32)
+           if q.dtype == torch.bfloat16 and d in WGMMA_BWD_HEAD_DIMS else None)
+    fn, last_path = _fused_bwd_lib()
+    outs = (dq, dk, dv, dq if acc is None else acc)  # acc's strides unused without acc
+    strides = (ctypes.c_int64 * 24)(*[s for t in (q, k, v, g, *outs) for s in t.stride()[:3]])
+    rc = _on_stream(q.device, fn, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(), kv_ptr,
+                    None if acc is None else acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), b, h, sq, sk, d, ctypes.cast(strides, ctypes.c_void_p),
+                    float(scale), int(bool(causal)))
+    path = K4_PATHS[last_path()]
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward: kernel launch ({path} path) failed with "
+                           f"CUDA error {rc}")
+    if path == "wgmma":
+        dq.copy_(acc)
+    flash_bwd_cuda.launches += 1
+    flash_bwd_cuda.launches_by_path[path] += 1
+    return dq, dk, dv
+
+
+flash_bwd_cuda.launches = 0  # K4 backward calls that launched, in this process
+flash_bwd_cuda.launches_by_path = dict.fromkeys(K4_PATHS, 0)  # the same, by path taken
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward and K4 backward (their plain versions on the CPU), the
-    counterpart of the JAX `custom_vjp`. (q, k, v, o, lse) are saved only
-    when an input needs a gradient; lse has none."""
+    """K1 forward and K4 backward (`flash_bwd_cuda`; their plain versions on
+    the CPU), the counterpart of the JAX `custom_vjp`. (q, k, v, o, lse) are
+    saved only when an input needs a gradient; lse has none."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal, scale):
@@ -326,8 +400,7 @@ class _FlashAttention(torch.autograd.Function):
             if g.stride(-1) != 1:
                 g = g.contiguous()
             delta = flash_delta(g, o)
-            dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, ctx.causal, ctx.scale, kv_len)
-            dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, ctx.causal, ctx.scale, kv_len)
+            dq, dk, dv = flash_bwd_cuda(q, k, v, g, lse, delta, ctx.causal, ctx.scale, kv_len)
         return dq, dk, dv, None, None, None
 
 

@@ -99,7 +99,7 @@ class PipelineConfig:
     embed_norm: float = 20.0
     llm_speculative_layers: int = 0  # > 0 refused until speculative decode is ported
     # grounding configs, kept equal to the JAX config's fields; nothing reads
-    # them until the torch-checkpoint loader (ROADMAP Queue 1, item 10)
+    # them until the torch-checkpoint loader (ROADMAP Queue 1, item 2)
     # builds the models (None selects Swin-T / ViT-H)
     gdino: Optional[Any] = None
     sam: Optional[Any] = None
@@ -223,7 +223,16 @@ def _random_llm(cfg: mm_lib.Any2PixLMConfig, device, dtype, gen,
 
 
 class InstructAny2PixPipeline:
-    """Port of the JAX `InstructAny2PixPipeline`."""
+    """Port of the JAX `InstructAny2PixPipeline`.
+
+    Weights come from `params` (a converted JAX tree, `convert.pipeline_params`)
+    or, when it is None, are drawn at random from `seed`. Loading checkpoints
+    is not ported yet (ROADMAP Queue 1, item 2), so a `<ckpt>/<llm_folder>`
+    directory on disk with `params` None raises rather than give random
+    weights beside the real tokenizer. Unlike the JAX constructor, which picks
+    `PipelineConfig.tiny()` when there is neither a checkpoint nor `params`,
+    the port builds `config` or, when it is None, the full `PipelineConfig()`.
+    """
 
     def __init__(
         self,
@@ -236,13 +245,18 @@ class InstructAny2PixPipeline:
         llm_folder: str = "llm-retrained",
         llm_quant_bits: Optional[int] = None,
     ):
+        if params is None and os.path.isdir(os.path.join(ckpt, llm_folder)):
+            raise NotImplementedError(
+                f"checkpoints found at {os.path.join(ckpt, llm_folder)}, but loading them is not "
+                "ported yet (ROADMAP Queue 1, item 2): pass `params` (a converted tree) or point "
+                "`ckpt` at a directory without checkpoints for random weights")
         self.device = resolve_device(device)
         self.cfg = config or PipelineConfig()
         if self.cfg.llm is None:
             self.cfg = dataclasses.replace(self.cfg, llm=mm_lib.Any2PixLMConfig())
         if self.cfg.llm_speculative_layers > 0:
             raise NotImplementedError(
-                "speculative decode is not ported yet (ROADMAP Queue 1, item 11)")
+                "speculative decode is not ported yet (ROADMAP Queue 1, item 5)")
         self.policy = policy
         self.schedule = Schedule.create(SchedulerConfig(), self.device)
         self.cache = None
@@ -572,11 +586,11 @@ class InstructAny2PixPipeline:
         is repainted into the refined image (IP-Adapter local mode)."""
         if diffusion_mode == "ipa_lcm":
             raise NotImplementedError(
-                "diffusion_mode='ipa_lcm' is not ported yet (ROADMAP Queue 1, item 10)")
+                "diffusion_mode='ipa_lcm' is not ported yet (ROADMAP Queue 1, item 3)")
         if debug:
             raise NotImplementedError(
                 "debug=True needs the UNet's capture_ip_attn tap, not ported yet "
-                "(ROADMAP Queue 1, item 10)")
+                "(ROADMAP Queue 1, item 3)")
         c = self.cfg
         seed = seed if seed is not None else int(np.random.randint(0, 2**31))
         gen = torch.Generator(self.device).manual_seed(seed)

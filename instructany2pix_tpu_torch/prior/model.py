@@ -167,7 +167,7 @@ def generate_diffusion(
     """Refined embedding (B, sequence_gen_length, output_dim)."""
     if not no_diffusion:
         raise NotImplementedError(
-            "the prior's DDPM sampling path is not ported yet (ROADMAP Queue 1, item 9); "
+            "the prior's DDPM sampling path is not ported yet (ROADMAP Queue 1, item 4); "
             "the pipeline runs no_diffusion=True"
         )
     dev = params.sos.weight.device

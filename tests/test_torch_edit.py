@@ -143,9 +143,10 @@ def test_speculative_decode_is_refused():
         tpl.InstructAny2PixPipeline(cfg, device="cpu", policy=FP32)
 
 
-def test_tokenizers_are_looked_up_where_the_jax_pipeline_looks(tmp_path, monkeypatch):
+def test_tokenizers_are_looked_up_where_the_jax_pipeline_looks(pipes, tmp_path, monkeypatch):
     """<ckpt>/<llm_folder>/tokenizer for the LLM, <ckpt>/clip-vit-h/tokenizer
-    for the prior's CLIP, as in the JAX pipeline."""
+    for the prior's CLIP, as in the JAX pipeline. The port is given `params`:
+    with a checkpoint directory on disk it refuses to draw random weights."""
     ckpt = str(tmp_path)
     os.makedirs(os.path.join(ckpt, "my-llm", "tokenizer"))
     seen = {"jax": [], "port": []}
@@ -156,8 +157,8 @@ def test_tokenizers_are_looked_up_where_the_jax_pipeline_looks(tmp_path, monkeyp
         monkeypatch.setattr(mod, "load_clip_tokenizer",
                             lambda p, _r=real_clip, _s=seen[name]: (_s.append(p), _r(p))[1])
     jpl.InstructAny2PixPipeline(ckpt=ckpt, llm_folder="my-llm", tiny=True, seed=0)
-    tpl.InstructAny2PixPipeline(tpl.PipelineConfig.tiny(), device="cpu", policy=FP32, ckpt=ckpt,
-                                llm_folder="my-llm")
+    tpl.InstructAny2PixPipeline(tpl.PipelineConfig.tiny(), params=convert.pipeline_params(
+        pipes[0].params), device="cpu", policy=FP32, ckpt=ckpt, llm_folder="my-llm")
     tok_dir = os.path.join(ckpt, "my-llm", "tokenizer")
     assert seen["port"][0] == seen["jax"][0] == tok_dir
     assert os.path.join(ckpt, "clip-vit-h", "tokenizer") in seen["port"]

@@ -1,10 +1,14 @@
 """The port's flash-attention gradient against the JAX package: the
-autograd Function (K1 forward, K4a/K4b backward; their plain versions on
-the CPU) against `jax.grad` through the Pallas kernels in interpret mode,
+autograd Function (K1 forward, K4 backward; their plain versions on the
+CPU) against `jax.grad` through the Pallas kernels in interpret mode,
 `flash_bwd_reference` against `_flash_bwd(interpret=True)`, the kv_len path
-against the JAX masked XLA path, and `gradcheck` in float64. Also: the
-kernels without a backward (K2, K3) refuse inputs that need a gradient, and
-the build hashes the header K1 and K4 share. CPU, float32."""
+against the JAX masked XLA path, and `gradcheck` in float64. Also: K4's
+wrapper counts its calls by the path the kernel reports (a stand-in library
+on the CPU), the kernels without a backward (K2, K3) refuse inputs that need
+a gradient, and the build hashes the headers K1 and K4 share. CPU, float32."""
+
+import ctypes
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -184,18 +188,119 @@ def test_no_grad_needed_takes_the_forward_only():
     assert torch.equal(out, fa._reference_attention(q, q, q, False, 32**-0.5))
 
 
+def test_cpu_backward_runs_only_the_plain_version(monkeypatch):
+    """On CPU tensors `_FlashAttention.backward` calls `flash_bwd_reference`
+    once and no kernel wrapper: each wrapper is replaced by one that fails."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a kernel wrapper was called on CPU tensors")
+
+    for name in ("flash_fwd_cuda", "flash_bwd_cuda", "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda"):
+        monkeypatch.setattr(fa, name, refuse)
+    calls = []
+    real = fa.flash_bwd_reference
+    monkeypatch.setattr(fa, "flash_bwd_reference",
+                        lambda *a, **kw: (calls.append(1), real(*a, **kw))[1])
+    q, k, v, g = (t(x) for x in _inputs(9, 2, 2, 24, 30, 32))
+    kv_len = torch.tensor([30, 11], dtype=torch.int32)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    grads = torch.autograd.grad(fa.flash_attention(qr, kr, vr, True, kv_len=kv_len), (qr, kr, vr),
+                                g)
+    assert len(calls) == 1
+    o, lse = fa._reference_attention(q, k, v, True, 32**-0.5, True, kv_len)
+    for a, b in zip(grads, real(q, k, v, o, lse, g, True, 32**-0.5, kv_len)):
+        assert torch.equal(a, b)
+
+
+def _fake_fused_library(monkeypatch, code, rc=0):
+    """Stand in for the library of `ia2p_flash_bwd` on the CPU: the call
+    returns `rc` and records its arguments, the path query returns `code`.
+    The device checks are lifted and the stream is None."""
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return rc
+
+    monkeypatch.setattr(fa, "_check_bwd", lambda *_: None)
+    monkeypatch.setattr(fa, "_check_kv_len", lambda *_: None)
+    monkeypatch.setattr(fa, "_fused_bwd_lib", lambda: (fn, lambda: code))
+    monkeypatch.setattr(fa, "_on_stream", lambda device, f, *args: f(*args, None))
+    return calls
+
+
+@pytest.mark.parametrize("dtype,d,code", [
+    (torch.bfloat16, 128, 2), (torch.bfloat16, 64, 2), (torch.bfloat16, 80, 1),
+    (torch.bfloat16, 72, 0), (torch.float32, 64, 0),
+])
+def test_fused_bwd_counts_launches_by_path(monkeypatch, dtype, d, code):
+    """One count per backward call, under the path the kernel reported; K4a's
+    and K4b's own counters stay. A float32 dq accumulator is passed only where
+    the fused kernel may take the call (bf16 at head_dim 64 and 128), and on
+    the wgmma path dq is that accumulator rounded (zeros here: the stand-in
+    adds nothing). A refused launch raises, naming its path, and counts
+    nothing."""
+    calls = _fake_fused_library(monkeypatch, code)
+    q, k, v, g = (torch.ones(2, 3, 20, d, dtype=dtype) for _ in range(4))
+    stats = torch.zeros(2, 3, 20)
+    path = fa.K4_PATHS[code]
+    others = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches)
+    before = (fa.flash_bwd_cuda.launches, dict(fa.flash_bwd_cuda.launches_by_path))
+    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, g, stats, stats, True, 0.2)
+    assert len(calls) == 1
+    assert fa.flash_bwd_cuda.launches == before[0] + 1
+    assert fa.flash_bwd_cuda.launches_by_path == {
+        p: n + (p == path) for p, n in before[1].items()}
+    assert (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches) == others
+    fused = dtype == torch.bfloat16 and d in fa.WGMMA_BWD_HEAD_DIMS
+    assert (calls[0][8] is not None) == fused  # the dq accumulator
+    assert calls[0][12:17] == (2, 3, 20, 20, d)
+    for x, like in ((dq, q), (dk, k), (dv, v)):
+        assert x.shape == like.shape and x.dtype == like.dtype
+    if code == 2:
+        assert not dq.any()
+    _fake_fused_library(monkeypatch, code, rc=700)
+    with pytest.raises(RuntimeError, match=f"{path} path"):
+        fa.flash_bwd_cuda(q, k, v, g, stats, stats, True, 0.2)
+    assert fa.flash_bwd_cuda.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_fused_bwd_lays_out_outputs_like_inputs(monkeypatch, layout):
+    """`flash_bwd_cuda` hands the library dq, dk and dv with q's, k's and v's
+    strides (the router's (B, S, H, D) views too), so K4a's and K4b's
+    alignment checks, which differ only in the outputs they see, agree on
+    every call the wrapper makes. Without a dq accumulator its slot repeats
+    dq's strides."""
+    seen = []
+
+    def fn(*args):
+        seen.append(list(ctypes.cast(args[17], ctypes.POINTER(ctypes.c_int64))[:24]))
+        return 0
+
+    _fake_fused_library(monkeypatch, 1)
+    monkeypatch.setattr(fa, "_fused_bwd_lib", lambda: (fn, lambda: 1))
+    q, k, v, g = (torch.ones(2, 3, 20, 80, dtype=torch.bfloat16) for _ in range(4))
+    if layout == "bshd":
+        q, k, v, g = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, g))
+    stats = torch.zeros(2, 3, 20)
+    fa.flash_bwd_cuda(q, k, v, g, stats, stats, True, 0.2)
+    (st,) = seen
+    bhs = [list(x.stride()[:3]) for x in (q, k, v, g)]
+    assert [st[i:i + 3] for i in range(0, 24, 3)] == bhs + [bhs[0], bhs[1], bhs[2], bhs[0]]
+
+
 def test_k4_wrappers_reject_cpu_tensors():
     q, k, v, g = (t(x) for x in _inputs(5, 1, 2, 16, 16, 32))
     lse = torch.zeros(1, 2, 16)
-    for fn in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+    for fn in (fa.flash_bwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, k, v, g, lse, lse, True, 0.2)
 
 
 @pytest.mark.parametrize("b, sq, sk", [(1, 0, 16), (1, 16, 0), (0, 16, 16)])
 def test_empty_calls_launch_and_count_nothing(monkeypatch, b, sq, sk):
-    """With no query rows, no key rows or no (batch, head) pair, the K1, K4a
-    and K4b wrappers return empty or zero outputs, launch nothing and add
+    """With no query rows, no key rows or no (batch, head) pair, the K1, K4,
+    K4a and K4b wrappers return empty or zero outputs, launch nothing and add
     nothing to their counters. The device checks are lifted so that the
     wrappers take CPU tensors; loading a library fails the test."""
     def no_library(*_):
@@ -206,17 +311,21 @@ def test_empty_calls_launch_and_count_nothing(monkeypatch, b, sq, sk):
     monkeypatch.setattr(fa, "_check_kv_len", lambda *_: None)
     monkeypatch.setattr(fa, "_lib", no_library)
     monkeypatch.setattr(fa, "_bwd_lib", no_library)
+    monkeypatch.setattr(fa, "_fused_bwd_lib", no_library)
     q, g = torch.ones(b, 2, sq, 32), torch.ones(b, 2, sq, 32)
     k, v = torch.ones(b, 2, sk, 32), torch.ones(b, 2, sk, 32)
     stats = torch.zeros(b, 2, sq)
-    counters = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    counters = (fa.flash_fwd_cuda, fa.flash_bwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
     before = [c.launches for c in counters]
+    by_path = dict(fa.flash_bwd_cuda.launches_by_path)
     dq = fa.flash_bwd_dq_cuda(q, k, v, g, stats, stats, True, 0.2)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, g, stats, stats, True, 0.2)
+    fused = fa.flash_bwd_cuda(q, k, v, g, stats, stats, True, 0.2)
     if sq == 0 or b == 0:  # K1 launches with no keys: its rows are written
         fa.flash_fwd_cuda(q, k, v, True, 0.2, return_lse=True)
     assert [c.launches for c in counters] == before
-    for x, like in ((dq, q), (dk, k), (dv, v)):
+    assert fa.flash_bwd_cuda.launches_by_path == by_path
+    for x, like in ((dq, q), (dk, k), (dv, v), *zip(fused, (q, k, v))):
         assert x.shape == like.shape and not x.any()
 
 
@@ -248,7 +357,8 @@ def test_kernels_without_backward_refuse_grad_inputs():
     assert torch.equal(y, Q._qmv_reference(x.detach(), qw, None, 1e-6, False, None))
 
 
-CSRC_FILES = ("flash_fwd.cu", "flash_fwd_sm90.cuh", "flash_bwd.cu", "flash_mma.cuh", "qmv.cu")
+CSRC_FILES = ("flash_fwd.cu", "flash_fwd_sm90.cuh", "flash_bwd.cu", "flash_bwd_sm90.cuh",
+              "sm90_common.cuh", "flash_mma.cuh", "qmv.cu")
 
 
 def test_build_hashes_included_headers(tmp_path, monkeypatch):
@@ -257,7 +367,8 @@ def test_build_hashes_included_headers(tmp_path, monkeypatch):
     for name in CSRC_FILES:
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    assert [p.name for p in _build.sources("flash_bwd")] == ["flash_bwd.cu", "flash_mma.cuh"]
+    assert [p.name for p in _build.sources("flash_bwd")] == [
+        "flash_bwd.cu", "flash_bwd_sm90.cuh", "flash_mma.cuh", "sm90_common.cuh"]
     before = {n: _build.artifact(n) for n in ("flash_fwd", "flash_bwd", "qmv")}
     (tmp_path / "flash_mma.cuh").write_text((tmp_path / "flash_mma.cuh").read_text() + "\n// edit\n")
     after = {n: _build.artifact(n) for n in ("flash_fwd", "flash_bwd", "qmv")}
@@ -278,7 +389,7 @@ def test_build_hash_covers_the_hopper_header_and_flags(tmp_path, monkeypatch):
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert [p.name for p in _build.sources("flash_fwd")] == [
-        "flash_fwd.cu", "flash_fwd_sm90.cuh", "flash_mma.cuh"]
+        "flash_fwd.cu", "flash_fwd_sm90.cuh", "flash_mma.cuh", "sm90_common.cuh"]
     names = ("flash_fwd", "flash_bwd", "qmv")
     before = {n: _build.artifact(n) for n in names}
     hdr = tmp_path / "flash_fwd_sm90.cuh"
@@ -297,22 +408,78 @@ def test_build_hash_covers_the_hopper_header_and_flags(tmp_path, monkeypatch):
     assert all(_build.artifact(n) != after[n] for n in ("flash_bwd", "qmv"))
 
 
+@pytest.mark.parametrize("header,rebuilt", [
+    ("sm90_common.cuh", {"flash_fwd", "flash_bwd"}),
+    ("flash_bwd_sm90.cuh", {"flash_bwd"}),
+    ("flash_fwd_sm90.cuh", {"flash_fwd"}),
+])
+def test_build_hash_covers_the_shared_hopper_headers(tmp_path, monkeypatch, header, rebuilt):
+    """K1's and K4's wgmma kernels share csrc/sm90_common.cuh (TMA, barriers,
+    descriptors, the Wgmma products, tensor maps): editing it rebuilds both
+    libraries, editing either kernel's own header rebuilds that library
+    only, and K2's is never touched."""
+    for name in CSRC_FILES:
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = ("flash_fwd", "flash_bwd", "qmv")
+    before = {n: _build.artifact(n) for n in names}
+    (tmp_path / header).write_text((tmp_path / header).read_text() + "\n// edit\n")
+    after = {n: _build.artifact(n) for n in names}
+    assert {n for n in names if after[n] != before[n]} == rebuilt
+
+
+def test_build_copies_writes_each_patched_copy(tmp_path, monkeypatch):
+    """`_build.build_copies` (planted faults, benchmark variants) writes
+    each copy's source and patched headers to a directory of its own, leaves
+    csrc/ as it was, builds each copy once and returns its report; a patch
+    whose text is not in its file exactly once raises before any build."""
+    commands = []
+
+    def fake_nvcc(src, out):
+        commands.append((src, out))
+        return [sys.executable, "-c", f"print('report of {src.parent.name}')"]
+
+    monkeypatch.setattr(_build, "nvcc_command", fake_nvcc)
+    header = (_build.CSRC / "flash_bwd_sm90.cuh").read_text()
+    old = "constexpr int kStages = 2;"
+    built = _build.build_copies("flash_bwd", {
+        "tree": {}, "stages_3": {"flash_bwd_sm90.cuh": [(old, "constexpr int kStages = 3;")]},
+    }, tmp_path)
+    assert sorted(built) == ["stages_3", "tree"]
+    assert (_build.CSRC / "flash_bwd_sm90.cuh").read_text() == header
+    for name, (so, report) in built.items():
+        assert so == tmp_path / name / "flash_bwd.so"
+        assert report.strip() == f"report of {name}"
+        assert ((tmp_path / name / "flash_bwd.cu").read_text()
+                == (_build.CSRC / "flash_bwd.cu").read_text())
+    assert not (tmp_path / "tree" / "flash_bwd_sm90.cuh").exists()
+    assert (tmp_path / "stages_3" / "flash_bwd_sm90.cuh").read_text() == header.replace(
+        old, "constexpr int kStages = 3;")
+    assert len(commands) == 2
+    with pytest.raises(RuntimeError, match="exactly once"):
+        _build.build_copies("flash_bwd", {"x": {"flash_bwd_sm90.cuh": [("no such text", "")]}},
+                            tmp_path)
+    assert len(commands) == 2
+
+
 def test_planted_faults_patch_real_code():
     """Every planted fault of chip_smoke.py (K1's mma.sync, fma and wgmma
-    loops, K2, K3, K4) names source text that occurs exactly once in the
-    file it patches, so each broken copy differs from the real kernel."""
+    loops, K2, K3, K4's two-kernel and fused paths) names source text that
+    occurs exactly once in the file it patches, so each broken copy differs
+    from the real kernel."""
     import chip_smoke
 
     sets = ((chip_smoke.FAULTS, "flash_fwd"), (chip_smoke.QMV_FAULTS, "qmv"),
             (chip_smoke.K3_FAULTS, "flash_fwd"), (chip_smoke.K4_FAULTS, "flash_bwd"))
-    wgmma = 0
+    wgmma = {"flash_fwd_sm90.cuh": 0, "flash_bwd_sm90.cuh": 0}
     for faults, src in sets:
         for name, (what, old, new, *where) in faults.items():
             target = where[0] if where else f"{src}.cu"
             assert (_build.CSRC / target).read_text().count(old) == 1, name
             assert old != new and what, name
-            wgmma += target == "flash_fwd_sm90.cuh"
-    assert wgmma >= 5
+            if target in wgmma:
+                wgmma[target] += 1
+    assert min(wgmma.values()) >= 5, wgmma
 
 
 def test_k1_counts_launches_by_path():

@@ -3,6 +3,8 @@ config: same converted weights, same start latent (the JAX draw handed to
 the port), float32 on the CPU. `from_model_range` truncates to uint8, so
 a last-digit difference may flip one level: images agree within 1."""
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 from instructany2pix_tpu.core.prng import KeyChain
 from instructany2pix_tpu.pipeline import InstructAny2PixPipeline as JaxPipeline
 from instructany2pix_tpu_torch import convert
+from instructany2pix_tpu_torch import pipeline as tpl
 from instructany2pix_tpu_torch.core.device import resolve_device
 from instructany2pix_tpu_torch.core.dtypes import FP32
 from instructany2pix_tpu_torch.pipeline import InstructAny2PixPipeline, PipelineConfig
@@ -62,3 +65,27 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
     with pytest.raises(RuntimeError):
         InstructAny2PixPipeline(PipelineConfig.tiny())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("llm_folder", ["llm-retrained", "my-llm"])
+def test_checkpoints_on_disk_without_params_are_refused(pipes, tmp_path, monkeypatch, llm_folder):
+    """With <ckpt>/<llm_folder> on disk and no `params`, the JAX constructor
+    loads the checkpoints; the port cannot yet (ROADMAP Queue 1, item 2), so
+    it raises before building any module instead of drawing random weights
+    beside the real tokenizer. Given `params` it builds as before."""
+    os.makedirs(tmp_path / llm_folder)
+
+    def no_module(*_a, **_k):
+        raise AssertionError("a module was built before the checkpoint check")
+
+    with monkeypatch.context() as m:
+        m.setattr(tpl, "_random_module", no_module)
+        m.setattr(tpl, "_random_llm", no_module)
+        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+            InstructAny2PixPipeline(PipelineConfig.tiny(), device="cpu", policy=FP32,
+                                    ckpt=str(tmp_path), llm_folder=llm_folder)
+    jp, tp = pipes
+    built = InstructAny2PixPipeline(PipelineConfig.tiny(), params=convert.pipeline_params(jp.params),
+                                    device="cpu", policy=FP32, ckpt=str(tmp_path),
+                                    llm_folder=llm_folder)
+    assert built.models.keys() == tp.models.keys()

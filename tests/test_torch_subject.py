@@ -97,7 +97,7 @@ def test_build_segmentator(tmp_path):
     assert grd(np.zeros((8, 8, 3), np.uint8), "dog . cat")[2] == ["dog", "cat"]
     for name in ("sam_vit_h_4b8939.pth", "gdino.pth"):
         (tmp_path / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
         tlib.build_segmentator(str(tmp_path))
 
 
