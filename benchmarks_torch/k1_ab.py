@@ -10,7 +10,10 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
       and K1_KV_SHAPES) is checked and timed in four processes in turn, parent,
       this tree, this tree, parent, each building and importing its own tree's
       port and timing with its own chip_smoke.py row functions, on the same
-      shapes and seeds.
+      shapes and seeds. The bf16 K1_SHAPES rows are also timed without the
+      host (kernel_ab.device_host: device time from a CUDA graph of the calls,
+      and the host's cost of issuing one), since the small ones are bound by
+      the host in eager timing.
   python3 benchmarks_torch/k1_ab.py --keys 64 176 --out build/k1_keys.json
       Builds copies of csrc/flash_fwd.cu whose wgmma path takes N-key tiles at
       both head dims (under build/flash_fwd_copies/) and times the bf16
@@ -45,23 +48,42 @@ def _rows(cs):
     return out
 
 
-def _time_rows(cs, rows, failures):
+def _unhosted(cs, dname, shape, sk, causal):
+    """kernel_ab.device_host of one K1 call at a row's shape, on random
+    inputs."""
+    import torch
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    b, h, sq, d = shape
+    dtype = getattr(torch, dname)
+    q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    return kernel_ab.device_host(cs, lambda: fa.flash_fwd_cuda(q, k, v, causal, d**-0.5))
+
+
+def _time_rows(cs, rows, failures, unhosted=False):
     import torch
 
     out = []
     for kind, a in rows:
+        dev = host = None
         if kind == "k1":
             dname, label, shape, sk, causal = a
             r = cs._k1_row(failures, True, getattr(torch, dname), dname, label, tuple(shape),
                            sk, causal)
+            if unhosted and dname == "bfloat16":
+                dev, host = _unhosted(cs, dname, shape, sk, causal)
         else:
             si, label, shape, sk, causal, kv, dname = a
             r = cs._k1_kv_row(failures, True, si, label, tuple(shape), sk, causal, tuple(kv),
                               dname)
             r["label"] = "kv_len " + label
-        out.append({k: r.get(k) for k in ("label", "dtype", "shape", "sk", "causal", "path",
-                                          "ok", "of_limit", "ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")})
+        out.append({**{k: r.get(k) for k in ("label", "dtype", "shape", "sk", "causal", "path",
+                                             "ok", "of_limit", "ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")},
+                    "device_ms": dev, "host_ms": host})
         torch.cuda.empty_cache()
     return out
 
@@ -70,7 +92,7 @@ def child(tree, rows_json):
     """Time `rows` with the port and chip_smoke.py of `tree`."""
     cs = kernel_ab.child_module(tree)
     failures = []
-    rows = _time_rows(cs, json.loads(rows_json), failures)
+    rows = _time_rows(cs, json.loads(rows_json), failures, unhosted=True)
     print(json.dumps({"tree": str(tree), "card": cs.card_line(), "rows": rows,
                       "failures": failures}))
 
@@ -89,10 +111,16 @@ def ab(parent, out):
                         "parent_path": runs[0]["rows"][i]["path"], "parent_ms": p,
                         "change_ms": c, "change_vs_parent": sum(c) / sum(p) - 1,
                         "parent_spread": abs(p[0] - p[1]) / min(p),
-                        "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]})
+                        "library_ms": row["library_ms"], "bound_ms": row["bound_ms"],
+                        "device_ms": [run["rows"][i]["device_ms"] for run in runs],
+                        "host_ms": [run["rows"][i]["host_ms"] for run in runs]})
+        unhosted = ""
+        if row["host_ms"] is not None:
+            unhosted = (f"; device ms (p, c, c, p) {summary[-1]['device_ms']}, host ms "
+                        f"{[round(x, 4) for x in summary[-1]['host_ms']]}")
         print(f"{row['label']:28s} {row['dtype']:8s} {row['path']:6s} parent {p[0]:.4f} "
               f"{p[1]:.4f} change {c[0]:.4f} {c[1]:.4f} ({summary[-1]['change_vs_parent']:+.1%}, "
-              f"parent spread {summary[-1]['parent_spread']:.1%})", flush=True)
+              f"parent spread {summary[-1]['parent_spread']:.1%}){unhosted}", flush=True)
     return kernel_ab.finish({"card": runs[0]["card"], "summary": summary, "runs": runs}, out,
                             [r for run in runs for r in run["failures"]])
 

@@ -4,9 +4,10 @@ a kernel of this tree against another commit, and patched copies of it.
 `in_turns` builds a library in both trees at once, then runs the calling
 script's `--child TREE ROWS` in four processes in turn, parent, this tree,
 this tree, parent: each imports its own tree's port and chip_smoke.py
-(`child_module`) and times the same rows on the same seeds. `build_copies`
-builds patched copies of this tree's source, and `loaded` puts one in
-place of the tree's library for the calls made inside it.
+(`child_module`) and times the same rows on the same seeds. `device_host`
+splits a small call's eager time into the card's and the host's.
+`build_copies` builds patched copies of this tree's source, and `loaded`
+puts one in place of the tree's library for the calls made inside it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -60,6 +62,27 @@ def in_turns(script, lib, parent, rows):
         runs.append(res)
         print(f"{name}: {len(res['rows'])} rows, failures {res['failures']}", flush=True)
     return runs
+
+
+def device_host(cs, fn, calls=200):
+    """(device ms per call of `fn` from a CUDA graph of its calls
+    (`cs.graph_ms`), or None where capture fails; the host's ms to issue one
+    call, from the wall time of `calls` calls with no sync between them).
+    `cs` is a tree's chip_smoke.py."""
+    import torch
+
+    try:
+        dev = cs.graph_ms([fn])
+    except RuntimeError as e:
+        print(f"graph capture failed: {e}", file=sys.stderr)
+        dev = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return dev, host
 
 
 def build_copies(lib, copies, kernel):

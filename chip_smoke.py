@@ -13,8 +13,8 @@ printed only when every phase passed):
      it plus the ImageBind and Llama shapes, on contiguous inputs and on the
      (B, S, H, D) views the router passes, within a limit scaled to each
      element (TOL), each row on the path the kernel must take (it reports
-     the one it took: wgmma for bf16 at head_dim 64 and 128, mma.sync at
-     80, fma otherwise); times K1, the plain version and
+     the one it took: wgmma for bf16 at head_dim 64, 80 and 128, fma
+     otherwise); times K1, the plain version and
      F.scaled_dot_product_attention (the yardstick, never called by the
      port) with CUDA events;
   3. K2 (the quantized decode matvec) against its plain version in bf16
@@ -43,14 +43,16 @@ printed only when every phase passed):
 After phase 3, K3 (SAM's rel-pos flash attention) against its plain
 version in bf16 at the SAM ViT-H global and window shapes, two ragged
 grids and head_dim 64, on contiguous inputs, on (B, N, H, D) views and
-on the chunks of a fused qkv projection that SAM passes (TOL), timed
-beside F.scaled_dot_product_attention with the bias as a (B, H, N, N)
-mask (the yardstick); float32 must be refused. Phase 4 then
-adds the full-width subject consistency: `__call__` with
+on the chunks of a fused qkv projection that SAM passes (TOL), each on
+the wgmma path, timed beside F.scaled_dot_product_attention with the
+bias as a (B, H, N, N) mask (the yardstick); float32 must be refused.
+Phase 4 then adds the full-width subject consistency: `__call__` with
 `subject_strength` through a random SAM ViT-H segmentor in bf16 (K3
-launched exactly 4 times per segmentor call, a non-empty mask, a finite
-1024x1024 image, seconds per stage, peak memory), and the random
-GroundingDINO Swin-T grounder (float32) on the edited image.
+launched exactly once per encoder block, 32 times per segmentor call:
+4 global and 28 window blocks, all on the wgmma path; a non-empty mask,
+a finite 1024x1024 image, seconds per stage, peak memory), the SAM
+encoder timed and split into its global and window attentions, and the
+random GroundingDINO Swin-T grounder (float32) on the edited image.
 
 Training (slice 4): after K3, K1 with a per-row key count (`kv_len`)
 against the router's plain masked path, and K4 (the flash backward)
@@ -112,21 +114,9 @@ TOL = {
 # Deliberately broken copies of K1 that the check above must refuse
 # (`--planted-faults`): (what it breaks, source text, replacement[, file]),
 # the file in csrc/ that holds the text when it is not flash_fwd.cu. The
-# mma_* faults now show at head_dim 80 only, the fma_* ones on the scalar
-# shapes; the wgmma_* ones patch the Hopper loop (flash_fwd_sm90.cuh).
+# fma_* ones show on the scalar shapes; the wgmma_* ones patch the Hopper
+# loop (flash_fwd_sm90.cuh), the d80_* ones its head_dim 80 tail boxes.
 FAULTS = {
-    "mma_skip_rescale": (
-        "tensor-core path: the accumulator of the first row of each fragment is "
-        "not rescaled when the running max grows",
-        "      oacc[n][0] *= alpha[0];\n      oacc[n][1] *= alpha[0];\n", ""),
-    "mma_drop_first_tile": (
-        "tensor-core path: the first 64-key tile is skipped",
-        "for (int kt = 0; kt < kend; kt += kMmaKeys)",
-        "for (int kt = kMmaKeys; kt < kend; kt += kMmaKeys)"),
-    "mma_q_row_stride": (
-        "tensor-core path: q rows are read with stride D, right only for (B,H,S,D) "
-        "contiguous q",
-        "(qp + (int64_t)row * st.qs + col)", "(qp + (int64_t)row * D + col)"),
     "fma_skip_rescale": (
         "scalar path: the accumulator is not rescaled when the running max grows",
         "for (int i = 0; i < DT; ++i) acc[i] *= alpha;",
@@ -153,6 +143,23 @@ FAULTS = {
         "const uint32_t k_tile = sk + stage * kTileBytes;",
         "const uint32_t k_tile = sk + ((stage + 1) % kStages) * kTileBytes;",
         "flash_fwd_sm90.cuh"),
+    "d80_k_tail_columns": (
+        "head_dim 80: k's tail box is loaded from columns 0-15 instead of 64-79",
+        "tma_load(k_dst + kHalves * kKHalf, &maps.k_tail, k_full + 8 * stage, kMainCols, key0, h, b);",
+        "tma_load(k_dst + kHalves * kKHalf, &maps.k_tail, k_full + 8 * stage, 0, key0, h, b);",
+        "flash_fwd_sm90.cuh"),
+    "d80_qk_tail_step_dropped": (
+        "head_dim 80: Q.K^T skips its 5th k-step (columns 64-79)",
+        "if constexpr (kTail > 0) {  // Q.K^T's last k-step",
+        "if constexpr (false) {  // Q.K^T's last k-step", "flash_fwd_sm90.cuh"),
+    "d80_pv_tail_dropped": (
+        "head_dim 80: P.V never computes o's last 16 columns",
+        "Wgmma<kTail>::rs(", "if (false) Wgmma<kTail>::rs(", "flash_fwd_sm90.cuh"),
+    "d80_o_tail_unswizzled": (
+        "head_dim 80: o's last 16 columns are written to shared memory without the 32-byte "
+        "swizzle the store's map reads them with",
+        "const int chunk = (j - 8 * kHalves) ^ ((lrow >> 2) & 1);",
+        "const int chunk = j - 8 * kHalves;", "flash_fwd_sm90.cuh"),
 }
 K1_SHAPES = [
     # (label, (B, H, Sq, D), Sk, causal)
@@ -164,6 +171,7 @@ K1_SHAPES = [
     ("refiner self 32x32", (2, 24, 1024, 64), 1024, False),
     ("ragged d=64", (2, 10, 1000, 64), 999, False),
     ("imagebind vit-h", (1, 16, 257, 80), 257, False),
+    ("non-causal d=80 sq!=sk", (2, 8, 333, 80), 517, False),
     ("llama causal", (1, 32, 600, 128), 600, True),
     ("llama causal sq<sk", (1, 32, 64, 128), 600, True),
     ("non-causal d=128 sq!=sk", (2, 8, 333, 128), 517, False),
@@ -173,11 +181,11 @@ K1_SHAPES = [
 
 def k1_path_expected(dname, d):
     """The path K1 must take for rows with 16-byte aligned strides (every
-    checked tensor): wgmma for bf16 at head_dim 64 and 128, mma.sync for
-    bf16 at 80, the scalar fma loop otherwise."""
+    checked tensor): wgmma for bf16 at head_dim 64, 80 and 128, the scalar
+    fma loop otherwise."""
     if dname != "bfloat16":
         return "fma"
-    return {64: "wgmma", 128: "wgmma", 80: "mma"}.get(d, "fma")
+    return "wgmma" if d in (64, 80, 128) else "fma"
 
 
 def reset_k1(fa):
@@ -185,13 +193,19 @@ def reset_k1(fa):
     fa.flash_fwd_cuda.launches_by_path = dict.fromkeys(fa.K1_PATHS, 0)
 
 
-def k1_paths_of(fa, fn):
+def k1_paths_of(fa, fn, counter=None):
     """Run fn and return (its result, the K1 paths it launched, in order of
-    K1_PATHS, each with its count)."""
-    before = dict(fa.flash_fwd_cuda.launches_by_path)
+    K1_PATHS, each with its count); K3's with `counter` =
+    fa.flash_relpos2d_cuda."""
+    counter = counter or fa.flash_fwd_cuda
+    before = dict(counter.launches_by_path)
     out = fn()
-    return out, {p: n - before[p] for p, n in fa.flash_fwd_cuda.launches_by_path.items()
-                 if n != before[p]}
+    return out, {p: n - before[p] for p, n in counter.launches_by_path.items() if n != before[p]}
+
+
+def reset_k3(fa):
+    fa.flash_relpos2d_cuda.launches = 0
+    fa.flash_relpos2d_cuda.launches_by_path = dict.fromkeys(fa.K1_PATHS, 0)
 
 # K2 vs its plain version, per output element:
 #   |y - y_ref| <= 2^-7 max(|y_ref|, |y_ref - r|) + 2^-6 sigma + 2^-14 A
@@ -240,20 +254,30 @@ K3_SHAPES = [
     ("ragged g=9", 3, 4, 9, 80),
     ("head_dim 64", 1, 12, 64, 64),
 ]
-# Deliberately broken copies of K3 (its bias policy in csrc/flash_fwd.cu)
-# that the check must refuse.
+# Deliberately broken copies of K3 (the RelPos2dBias policy of the wgmma
+# kernel in csrc/flash_fwd_sm90.cuh) that the check must refuse.
 K3_FAULTS = {
     "bias_indices_swapped": (
-        "bh is read at the key's column and bw at its row",
-        "smem[lrow * gp + c.u] + smem[(kMmaRows + lrow) * gp + c.w];",
-        "smem[lrow * gp + c.w] + smem[(kMmaRows + lrow) * gp + c.u];"),
+        "bh is read at the key's grid column and bw at its grid row",
+        "return x + row[c.u] + row[kWarpRows * gp + c.w];",
+        "return x + row[c.w] + row[kWarpRows * gp + c.u];", "flash_fwd_sm90.cuh"),
     "bias_first_tile_only": (
-        "the bias is added in the first 64-key tile only",
-        "const float logit = bias.add(s[j][e] * scale, bias_s, lrows[r], bc);",
-        "const float logit = kt == 0 ? bias.add(s[j][e] * scale, bias_s, lrows[r], bc) : s[j][e] * scale;"),
+        "the bias is added in the first 128-key tile only",
+        "float x = bias.add(s[i] * scale2, brows[r], bc);",
+        "float x = kt == 0 ? bias.add(s[i] * scale2, brows[r], bc) : s[i] * scale2;",
+        "flash_fwd_sm90.cuh"),
     "bias_rows_unpadded": (
-        "bh is staged with an unpadded row stride and read with the padded one",
-        "smem[r * gp + c] = ok ? bh[base + i] : 0.f;", "smem[r * G + c] = ok ? bh[base + i] : 0.f;"),
+        "the bias rows are staged with an unpadded stride and read with the padded one",
+        "dst[r * gp + c] = e4[e] * kLog2e;", "dst[r * G + c] = e4[e] * kLog2e;",
+        "flash_fwd_sm90.cuh"),
+    "bias_natural_units": (
+        "the bias is added in natural units to logits in base-2 units (log2 e not folded in)",
+        "dst[r * gp + c] = e4[e] * kLog2e;", "dst[r * gp + c] = e4[e];", "flash_fwd_sm90.cuh"),
+    "bias_other_warpgroup": (
+        "each consumer warp stages the bias rows of the other warpgroup's queries",
+        "bias.stage(warp_bias, bh, wg_row0 + 16 * warp, lane);",
+        "bias.stage(warp_bias, bh, row0 + 64 * (1 - cw) + 16 * warp, lane);",
+        "flash_fwd_sm90.cuh"),
 }
 SUBJECT_STRENGTH = 0.5  # subject inpaint at full width: 25 steps of the 50-step grid
 L2_BYTES = 50 * 2**20
@@ -633,8 +657,8 @@ def qkv_views(q, k, v):
 def phase_k3(failures, timed=True):
     """K3 against its plain version at every K3_SHAPES entry, in bf16, on
     (B, H, N, D)-contiguous inputs, on (B, N, H, D) views and on the
-    chunks of a fused qkv projection that SAM's encoder passes; float32
-    must be refused. With `timed`, K3, the plain version and SDPA
+    chunks of a fused qkv projection that SAM's encoder passes, each call
+    on the wgmma path; float32 must be refused. With `timed`, K3, the plain version and SDPA
     with the bias as a dense mask, timed with CUDA events."""
     import torch
     import torch.nn.functional as F
@@ -650,23 +674,28 @@ def phase_k3(failures, timed=True):
             scale = d**-0.5
             o_ref, limit = k3_reference(fa, q, k, v, bh, bw, scale)
             views = tuple(bshd_view(x) for x in (q, k, v))
-            readings = []
+            readings, taken = [], []
             for lq, lk, lv in ((q, k, v), views, qkv_views(q, k, v)):
-                o = fa.flash_relpos2d_cuda(lq, lk, lv, bh, bw, scale)
+                o, paths = k1_paths_of(fa, lambda: fa.flash_relpos2d_cuda(lq, lk, lv, bh, bw, scale),
+                                       fa.flash_relpos2d_cuda)
+                taken.append(paths)
                 diff = (o.float() - o_ref.float()).abs()
                 readings.append({"err": diff.max().item(), "of_limit": (diff / limit).max().item(),
                                  "ok": bool((diff <= limit).all())})
+            path = "/".join(sorted({p for t in taken for p in t}))
             row = {"label": label, "shape": [b, h, g * g, d], "g": g, "dtype": "bfloat16",
-                   "ok": all(r["ok"] for r in readings),
+                   "path": path, "ok": all(r["ok"] for r in readings)
+                   and all(t == {"wgmma": 1} for t in taken),
                    "err_o": max(r["err"] for r in readings),
                    "of_limit": max(r["of_limit"] for r in readings),
                    "of_limit_bhsd": readings[0]["of_limit"], "of_limit_bshd": readings[1]["of_limit"],
                    "of_limit_qkv": readings[2]["of_limit"]}
             if not row["ok"]:
-                failures.append(f"K3 {label}: |o| {row['err_o']:.3g} = {row['of_limit']:.3g} of its limit")
-            msg = (f"K3 {label:17s} (B,H,N,D)=({b},{h},{g * g},{d}) g={g:<3d} |o|={row['err_o']:.3g} "
-                   f"(of limit: bhsd {row['of_limit_bhsd']:.3f}, bshd {row['of_limit_bshd']:.3f}, "
-                   f"qkv {row['of_limit_qkv']:.3f})")
+                failures.append(f"K3 {label}: |o| {row['err_o']:.3g} = {row['of_limit']:.3g} of its "
+                                f"limit, paths {taken} (expected wgmma on each layout)")
+            msg = (f"K3 {label:17s} {path} (B,H,N,D)=({b},{h},{g * g},{d}) g={g:<3d} "
+                   f"|o|={row['err_o']:.3g} (of limit: bhsd {row['of_limit_bhsd']:.3f}, bshd "
+                   f"{row['of_limit_bshd']:.3f}, qkv {row['of_limit_qkv']:.3f})")
             if timed:
                 iters = 20 if g * g >= 1024 else 100
                 row["ms"] = time_ms(lambda: fa.flash_relpos2d_cuda(q, k, v, bh, bw, scale), iters)
@@ -1339,7 +1368,7 @@ def phase_full_width(failures):
     try:
         for name, kw, expected in requests:
             reset_k1(fa)
-            fa.flash_relpos2d_cuda.launches = 0
+            reset_k3(fa)
             Q.qmv_cuda.launches = 0
             reset_k4(fa)
             t0 = time.time()
@@ -1471,7 +1500,7 @@ def phase_edit(pipe, failures, finite):
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
         reset_k1(fa)
-        fa.flash_relpos2d_cuda.launches = 0
+        reset_k3(fa)
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
         t0 = time.time()
@@ -1491,15 +1520,19 @@ def phase_edit(pipe, failures, finite):
                     "stage_seconds": dict(pipe.stage_times), "caption": res[2][:120],
                     "tokens": gen.tokens[0, :steps + 1].tolist(),
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        # the ImageBind trunks are bf16 at head_dim 80 (vision) and 64 (audio): all wgmma
         ok = (isinstance(res, tuple) and len(res) == 5 and isinstance(res[2], str)
-              and k1 == k1_expected and k2 == per_step * steps and steps > 0 and k3 == 0)
+              and k1 == k1_expected and out["k1_by_path"]["wgmma"] == k1
+              and k2 == per_step * steps and steps > 0 and k3 == 0)
         if not ok:
-            failures.append(f"forward_llm: K1 {k1} (expected {k1_expected}), K2 {k2} (expected "
+            failures.append(f"forward_llm: K1 {k1} by path {out['k1_by_path']} (expected "
+                            f"{k1_expected}, all wgmma), K2 {k2} (expected "
                             f"{per_step} x {steps} decode steps), K3 {k3} (expected 0), "
                             f"result {type(res)}")
         log(f"forward_llm: {out['forward_llm_seconds']:.3f} s ({', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_times.items())}), "
             f"{steps} decode steps, K2 launches {k2} (expected {per_step * steps}), K1 launches "
-            f"{k1} (expected {k1_expected}: the ImageBind trunks), K3 launches {k3} (expected 0), "
+            f"{k1} {out['k1_by_path']} (expected {k1_expected}: the ImageBind trunks, all wgmma), "
+            f"K3 launches {k3} (expected 0), "
             f"caption {res[2][:60]!r}")
 
         # one <video> row per media item was spliced
@@ -1589,7 +1622,7 @@ def phase_edit(pipe, failures, finite):
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
         reset_k1(fa)
-        fa.flash_relpos2d_cuda.launches = 0
+        reset_k3(fa)
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
         n_decoded = len(finite)
@@ -1622,6 +1655,48 @@ def phase_edit(pipe, failures, finite):
         pipe.cache = None
     return out
 
+
+def sam_encode_split(sam_lib, encoder, x, cfg, reps=3):
+    """The SAM encoder's time on the card, split by its attentions: CUDA
+    events around each `_attn_with_relpos` call (the bias einsums and K3 or
+    the plain version) of `reps` encodes after one warm-up, summed per
+    encode over the global blocks and over the windowed ones. The events sit
+    in the stream between the calls, so a gap the host leaves inside an
+    attention counts to it. `sam_lib` is the grounding.sam module of the
+    port being timed."""
+    import torch
+
+    real = sam_lib._attn_with_relpos
+    spans = []
+
+    def timed(q, k, v, p, hw, heads):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        o = real(q, k, v, p, hw, heads)
+        ev[1].record()
+        spans.append((hw, ev))
+        return o
+
+    sam_lib._attn_with_relpos = timed
+    try:
+        with torch.inference_mode():
+            sam_lib.encoder_apply(encoder, x, cfg)
+            spans.clear()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                sam_lib.encoder_apply(encoder, x, cfg)
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        sam_lib._attn_with_relpos = real
+    grid = cfg.img_size // cfg.patch
+    out = {"encode_ms": start.elapsed_time(end) / reps}
+    for name, keep in (("global", lambda hw: hw == grid), ("window", lambda hw: hw != grid)):
+        mine = [ev for hw, ev in spans if keep(hw)]
+        out[f"{name}_calls"] = len(mine) // reps
+        out[f"{name}_attention_ms"] = sum(a.elapsed_time(b) for a, b in mine) / reps
+    return out
 
 def phase_subject(pipe, failures, finite):
     """Subject consistency at full width: `__call__` with `subject_strength`
@@ -1685,7 +1760,7 @@ def phase_subject(pipe, failures, finite):
         torch.cuda.reset_peak_memory_stats()
         pipe.stage_times = {}
         reset_k1(fa)
-        fa.flash_relpos2d_cuda.launches = 0
+        reset_k3(fa)
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
         n_decoded = len(finite)
@@ -1697,11 +1772,13 @@ def phase_subject(pipe, failures, finite):
         out["call_seconds"] = time.time() - t0
         k1, k3 = fa.flash_fwd_cuda.launches, fa.flash_relpos2d_cuda.launches
         k1_by_path = dict(fa.flash_fwd_cuda.launches_by_path)
+        k3_by_path = dict(fa.flash_relpos2d_cuda.launches_by_path)
         out.update(no_k4(fa, failures, "subject __call__"))
         pipe.cache = None
     out.update({"stage_seconds": dict(pipe.stage_times), "k1_launches": k1,
                 "k1_by_path": k1_by_path,
-                "k1_expected": k1_expected, "k3_launches": k3, "segmentor_calls": len(masks),
+                "k1_expected": k1_expected, "k3_launches": k3, "k3_by_path": k3_by_path,
+                "k3_expected": scfg.depth * len(masks), "segmentor_calls": len(masks),
                 "k2_launches": Q.qmv_cuda.launches,
                 "mask_fraction": [float(m.mean()) for m in masks],
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1709,17 +1786,19 @@ def phase_subject(pipe, failures, finite):
     pipe.stage_times = None
     all_finite = len(finite) - n_decoded == 3 and all(finite[n_decoded:])
     ok = (edited.shape == (cfg.image_size, cfg.image_size, 3) and edited.dtype == np.uint8
-          and all_finite and msg == "SUCCESS!" and len(masks) == 1 and k3 == 4 * len(masks)
+          and all_finite and msg == "SUCCESS!" and len(masks) == 1
+          and k3 == scfg.depth * len(masks) and k3_by_path.get("wgmma") == k3
           and k1 == k1_expected and 0 < masks[0].mean() and not np.array_equal(edited, non_refined))
     if not ok:
         failures.append(f"subject consistency: image {edited.shape} {edited.dtype}, finite "
-                        f"{all_finite}, msg {msg!r}, segmentor calls {len(masks)}, K3 {k3} "
-                        f"(expected 4 per call), K1 {k1} (expected {k1_expected}), mask fractions "
-                        f"{out['mask_fraction']}")
+                        f"{all_finite}, msg {msg!r}, segmentor calls {len(masks)}, K3 {k3} by path "
+                        f"{k3_by_path} (expected {scfg.depth} per call, all wgmma), K1 {k1} "
+                        f"(expected {k1_expected}), mask fractions {out['mask_fraction']}")
     log(f"__call__ with subject consistency (strength {SUBJECT_STRENGTH}: {inpaint_steps} inpaint "
         f"steps of 50): {out['call_seconds']:.3f} s; " + ", ".join(
             f"{k} {v:.3f} s" for k, v in out["stage_seconds"].items())
-        + f"; K3 launches {k3} ({len(masks)} segmentor call, expected 4 each); K1 launches {k1} "
+        + f"; K3 launches {k3} {k3_by_path} ({len(masks)} segmentor call, expected {scfg.depth} "
+        f"each: every encoder block); K1 launches {k1} "
         f"(expected {k1_expected}); mask fraction {out['mask_fraction']}; image {edited.shape} "
         f"finite {all_finite}; peak {out['peak_gib']:.2f} GiB; SAM ViT-H {out['sam_gib']:.2f} GiB "
         f"bf16, GroundingDINO {out['gdino_gib']:.2f} GiB f32, built in {out['build_seconds']:.1f} s")
@@ -1727,6 +1806,7 @@ def phase_subject(pipe, failures, finite):
     with torch.inference_mode():
         x = torch.randn((1, scfg.img_size, scfg.img_size, 3), device="cuda").bfloat16()
         out["sam_encode_ms"] = time_ms(lambda: sam_lib.encoder_apply(sam.encoder, x, scfg), 3, 1)
+        out["sam_encode_split"] = sam_encode_split(sam_lib, sam.encoder, x, scfg)
         grounder = gdino_lib.make_grounder(gd, gcfg)
         grounder(edited, "cat")
         torch.cuda.synchronize()
@@ -1748,7 +1828,12 @@ def phase_subject(pipe, failures, finite):
     if not (shapes_ok and finite_ok and len(boxes) == len(scores) == len(phrases)):
         failures.append(f"GroundingDINO: boxes {tuple(rb.shape)}, logits {tuple(rl.shape)}, "
                         f"finite {finite_ok}, kept {len(boxes)}/{len(scores)}/{len(phrases)}")
-    log(f"SAM ViT-H encoder (bf16, 1024^2): {out['sam_encode_ms']:.2f} ms; GroundingDINO Swin-T "
+    split = out["sam_encode_split"]
+    log(f"SAM ViT-H encoder (bf16, 1024^2): {out['sam_encode_ms']:.2f} ms; with events around its "
+        f"attentions {split['encode_ms']:.2f} ms, of which {split['global_calls']} global "
+        f"attentions {split['global_attention_ms']:.3f} ms and {split['window_calls']} window "
+        f"attentions {split['window_attention_ms']:.3f} ms (bias einsums and K3)")
+    log(f"GroundingDINO Swin-T "
         f"grounder on the edited image: {out['grounder_seconds']:.3f} s, forward "
         f"{out['gdino_forward_seconds']:.3f} s on {tuple(xg.shape)}, boxes {tuple(rb.shape)}, logits "
         f"{tuple(rl.shape)}, finite {finite_ok}, {len(boxes)} boxes kept at 0.35/0.25")
@@ -1886,7 +1971,7 @@ def phase_train(failures):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_k1(fa)
-        fa.flash_relpos2d_cuda.launches = 0
+        reset_k3(fa)
         Q.qmv_cuda.launches = 0
         reset_k4(fa)
         t_last[0] = time.perf_counter()
@@ -2416,14 +2501,18 @@ def main(argv=None) -> int:
     k1_paths = {"text2img": sum(r["k1_launches"] for r in full["requests"]),
                 "forward_llm": edit["k1_launches"], "edit_call": edit["call_k1_launches"],
                 "subject_call": subject["k1_launches"], "train": train["launches"]["k1"]}
+    d80 = [r for r in rows if r["dtype"] == "bfloat16" and r["shape"][3] == 80]
     k1 = {
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "instructany2pix_tpu_torch/csrc/flash_fwd.cu",
+        "source": "instructany2pix_tpu_torch/csrc/flash_fwd_sm90.cuh",
+        "kernel": "sm90::flash_fwd_wgmma_kernel<D, kKvLen, NoBias> (bf16, D in {64, 80, 128}) "
+                  "through ia2p_flash_fwd (csrc/flash_fwd.cu), whose flash_fwd_kernel takes "
+                  "float32 and other head dims",
         "replaces": "instructany2pix_tpu/ops/flash_attention.py:44",
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
-        # the same launches by the kernel path each took (wgmma, mma.sync, fma)
+        # the same launches by the kernel path each took (wgmma, fma)
         "launches_by_kernel_path": {
             "text2img": {p: sum(r["k1_by_path"][p] for r in full["requests"])
                          for p in full["requests"][0]["k1_by_path"]},
@@ -2439,6 +2528,9 @@ def main(argv=None) -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "headline_shape": f"{head['label']} {head['shape']} sk={head['sk']} bf16",
+        "head_dim_80": [{k: r.get(k) for k in ("label", "shape", "sk", "path", "ms", "plain_ms",
+                                               "library_ms", "bound_ms", "bound_by", "of_limit")}
+                        for r in d80],
         "shapes": rows,
         "kv_len_shapes": k4["k1_kv_len"],
         "training_shape": {k: k4["k1_kv_len"][0][k] for k in (
@@ -2471,12 +2563,16 @@ def main(argv=None) -> int:
                    for r in qrows],
     }
     k3head = next(r for r in k3rows if r["label"] == "sam global block")
+    k3win = next(r for r in k3rows if r["label"] == "sam window block")
     k3 = {
         "name": "flash_relpos2d",
         "route": "cuda",
-        "source": "instructany2pix_tpu_torch/csrc/flash_fwd.cu",
+        "source": "instructany2pix_tpu_torch/csrc/flash_fwd_sm90.cuh",
+        "kernel": "sm90::flash_fwd_wgmma_kernel<D, false, RelPos2dBias> (bf16, D in {64, 80}) "
+                  "through ia2p_flash_relpos2d (csrc/flash_fwd.cu)",
         "replaces": "instructany2pix_tpu/ops/flash_attention.py:174",
         "launches": subject["k3_launches"],
+        "launches_by_kernel_path": {"subject_call": subject["k3_by_path"]},
         "launches_by_path": {"text2img": sum(r["k3_launches"] for r in full["requests"]),
                              "forward_llm": edit["k3_launches"], "edit_call": edit["call_k3_launches"],
                              "subject_call": subject["k3_launches"],
@@ -2491,8 +2587,13 @@ def main(argv=None) -> int:
         "library_ms": k3head["library_ms"],
         "library_call": "F.scaled_dot_product_attention with the bias as a (B, H, N, N) bf16 mask",
         "headline_shape": "SAM ViT-H global block (1, 16, 4096, 80), g=64, bf16",
-        "shapes": [{k: r[k] for k in ("label", "shape", "g", "ms", "ms_bshd", "plain_ms", "library_ms",
-                                      "bound_ms", "bound_by", "err_o", "of_limit", "of_limit_qkv")}
+        "window_shape": {k: k3win[k] for k in ("label", "shape", "g", "ms", "plain_ms",
+                                                "library_ms", "bound_ms", "bound_by")},
+        "sam_encode_ms": subject["sam_encode_ms"],
+        "sam_encode_split": subject["sam_encode_split"],
+        "shapes": [{k: r[k] for k in ("label", "shape", "g", "path", "ms", "ms_bshd", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by", "err_o", "of_limit",
+                                      "of_limit_qkv")}
                    for r in k3rows],
     }
     k4head = next(r for r in k4["k4"] if r["label"] == "llama train")

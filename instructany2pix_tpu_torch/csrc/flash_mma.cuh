@@ -1,8 +1,8 @@
-// Pieces shared by the flash-attention kernels: K1 and K3 (flash_fwd.cu)
-// and K4 (flash_bwd.cu). The kv_len bound, conversions between the element
-// types and float,
-// and the warp-level tensor-core product mma.sync m16n8k16 for bf16 with
-// float32 accumulators.
+// Pieces shared by the flash-attention kernels: K1 and K3 (flash_fwd.cu,
+// flash_fwd_sm90.cuh) and K4 (flash_bwd.cu). The kv_len bound, conversions
+// between the element types and float, bf16 packing, and the warp-level
+// tensor-core product mma.sync m16n8k16 for bf16 with float32 accumulators
+// (K4a and K4b at head_dim 80).
 //
 // Fragment layout of m16n8k16 (groupID g = lane / 4, t4 = lane % 4):
 //   A (16 x 16, row-major), four 32-bit registers of two elements each:

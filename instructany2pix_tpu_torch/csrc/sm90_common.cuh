@@ -3,12 +3,14 @@
 //   * mbarrier, TMA load/store/reduce-add, fences and the wgmma
 //     fence/commit/wait;
 //   * the shared-memory descriptor of a wgmma operand in the 128-byte
-//     swizzle, and `keep`, which pins registers a wgmma in flight uses;
+//     swizzle (or the 32-byte one), and `keep`, which pins registers a
+//     wgmma in flight uses;
 //   * Wgmma<N>: m64nNk16 bf16 products with float32 accumulators, A from
 //     shared memory (`ss`, both operands K-major; `tt`, both MN-major) or
 //     from registers (`rs`, B MN-major);
 //   * View and encode: 4-D TMA tensor maps (D, S, H, B) of bf16 operands
-//     built on the host from the tensors' own strides.
+//     built on the host from the tensors' own strides, in boxes of 64
+//     columns with the 128-byte swizzle or of 16 with the 32-byte one.
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
 // looked up at run time by cudaGetDriverEntryPoint(ByVersion), so the
@@ -88,11 +90,13 @@ __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t 
       : "memory");
 }
 
-// shared-memory descriptor of a wgmma operand in the 128-byte swizzle:
-// start address, leading and stride byte offsets (16-byte units)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// shared-memory descriptor of a wgmma operand: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle of its rows, 128
+// bytes (the layout type 1) or 32 (type 3)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         int swizzle = 128) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(swizzle == 128 ? 1 : 3) << 62);
 }
 
 // 2^x on the special-function unit; results under 2^-126 flush to 0
@@ -138,6 +142,21 @@ __device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
 // per warp (16 rows) as N/8 m16n8 C fragments.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // D += A.B, A (bf16, the m16n8k16 A layout per warp) from registers, B from
+  // shared memory MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -262,11 +281,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4-D map (D, S, H, B) of `x` with boxes of 64 elements x `rows` rows,
-// 128-byte swizzle, zero fill out of bounds. A dimension of extent 1 gets
-// a packed stride in place of whatever the tensor carries: it is never
-// stepped, and TMA wants a multiple of 16 bytes.
-cudaError_t encode(CUtensorMap* map, const View& x, int D, int S, int H, int B, int rows) {
+// The 4-D map (D, S, H, B) of `x` with boxes of `cols` elements x `rows`
+// rows in `swizzle`, zero fill out of bounds: 64 columns in the 128-byte
+// swizzle, or 16 (the tail of a 160-byte row) in the 32-byte one. A
+// dimension of extent 1 gets a packed stride in place of whatever the
+// tensor carries: it is never stepped, and TMA wants a multiple of 16
+// bytes.
+cudaError_t encode(CUtensorMap* map, const View& x, int D, int S, int H, int B, int rows,
+                   int cols = kBoxCols,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(H), cuuint64_t(B)};
@@ -274,11 +297,11 @@ cudaError_t encode(CUtensorMap* map, const View& x, int D, int S, int H, int B, 
   const int64_t sh = H == 1 ? int64_t(D) * S : x.sh;
   const int64_t sb = B == 1 ? int64_t(D) * S * H : x.sb;
   const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2, cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {kBoxCols, cuuint32_t(rows), 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(cols), cuuint32_t(rows), 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.p), dims,
                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

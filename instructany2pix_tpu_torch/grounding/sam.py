@@ -3,10 +3,11 @@ JAX package's `grounding/sam.py`.
 
   * image encoder: ViT with windowed attention (global attention at the
     configured blocks), decomposed relative position bias and a 2-conv
-    neck → (B, g, g, out_chans) image embedding. The global blocks of a
-    bf16 encoder on the card run K3 (`ops/flash_attention.py::
-    flash_attention_relpos2d`, `csrc/flash_fwd.cu`); every other
-    attention takes the plain math;
+    neck → (B, g, g, out_chans) image embedding. Every block of a bf16
+    encoder on the card, global and windowed, runs K3
+    (`ops/flash_attention.py::flash_attention_relpos2d`, `csrc/flash_fwd.cu`;
+    `k3_routed`); on the CPU and in float32 the attention takes the plain
+    math;
   * prompt encoder: random-Fourier positional encoding plus learned corner
     embeddings for boxes;
   * mask decoder: two-way transformer, IoU head, hypernetwork MLPs over a
@@ -31,7 +32,17 @@ from ..models import layers as L
 from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import _reference_relpos2d, flash_attention_relpos2d
 
-K3_MIN_TOKENS = 1024  # bf16 CUDA calls with this many tokens go to K3 (the global blocks)
+# bf16 calls on the card with at least this many tokens go to K3. On an
+# H100 K3 beat the plain version at every grid chip_smoke.py times, down
+# to the smallest, g = 9 (PERF.md): SAM's 14 x 14 windows take it too.
+K3_MIN_TOKENS = 81
+
+
+def k3_routed(device_type: str, dtype: torch.dtype, n: int) -> bool:
+    """Whether the rel-pos attention of `n` tokens runs K3: bf16 on the
+    card from K3_MIN_TOKENS on; the plain version on the CPU and in
+    float32."""
+    return device_type == "cuda" and dtype == torch.bfloat16 and n >= K3_MIN_TOKENS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,8 +233,8 @@ def _attn_with_relpos(q, k, v, p: EncBlock, hw: int, heads: int):
     """q, k, v: (B*, N, H, D) over an hw x hw token grid with decomposed
     relative position bias → (B*, N, H, D). The bias einsums take operands
     in q's dtype and accumulate in float32 (exact products, as JAX's
-    `preferred_element_type`). bf16 calls on the card with N >= 1024 (the
-    global blocks) run K3; every other call the plain version."""
+    `preferred_element_type`). Calls that `k3_routed` names run K3; every
+    other call the plain version."""
     b, n, h, d = q.shape
     scale = d**-0.5
     rh = _get_rel_pos(p.rel_pos_h, hw, hw).to(q.dtype).float()  # (hw, hw, d)
@@ -232,7 +243,7 @@ def _attn_with_relpos(q, k, v, p: EncBlock, hw: int, heads: int):
     bias_h = torch.einsum("byxhd,yud->bhyxu", qg, rh).reshape(b, h, n, hw)
     bias_w = torch.einsum("byxhd,xvd->bhyxv", qg, rw).reshape(b, h, n, hw)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if q.is_cuda and q.dtype == torch.bfloat16 and n >= K3_MIN_TOKENS:
+    if k3_routed(q.device.type, q.dtype, n):
         o = flash_attention_relpos2d(qt, kt, vt, bias_h, bias_w, scale=scale)
     else:
         o = _reference_relpos2d(qt, kt, vt, bias_h, bias_w, scale)

@@ -19,7 +19,7 @@ or past kv_len[b]: with `causal` it is the training collator's right-padding
 mask, the function the JAX package computes on its masked XLA path.
 
 `flash_attention_relpos2d` is the counterpart of the JAX function of that
-name, forward only: K1's tensor-core kernel with a bias policy
+name, forward only: K1's wgmma kernel with a bias policy
 (`ia2p_flash_relpos2d` in `csrc/flash_fwd.cu`) on a CUDA tensor,
 `_reference_relpos2d` on a CPU tensor. Like the JAX function it has no
 gradient, so on the card it refuses an input that requires one while grad
@@ -167,7 +167,7 @@ def _check_kv_len(kv_len, q):
     return kv_len.data_ptr()
 
 
-K1_PATHS = ("fma", "mma", "wgmma")  # ia2p_flash_fwd_last_path's codes
+K1_PATHS = ("fma", "wgmma")  # ia2p_flash_fwd_last_path's codes (K1 and K3)
 
 
 def _lib():
@@ -193,7 +193,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
     does not take and on a refused launch. The output carries no gradient:
     `flash_attention` is the differentiable entry point. Each launch is
     counted in `launches` and, by the path the kernel took (K1_PATHS: wgmma
-    for bf16 at head_dim 64 and 128, mma.sync at 80, fma otherwise), in
+    for bf16 at head_dim 64, 80 and 128, fma otherwise), in
     `launches_by_path`."""
     _check(q, k, v)
     kv_ptr = _check_kv_len(kv_len, q)
@@ -432,7 +432,7 @@ def flash_attention(
 # The logit for query t and key u*g + v is q.k*scale + bh[t, u] + bw[t, v].
 
 RELPOS_HEAD_DIMS = (64, 80)
-RELPOS_MAX_GRID = 256
+RELPOS_MAX_GRID = 120  # the bias rows of 128 queries fit in shared memory beside q and k/v
 
 
 def _reference_relpos2d(q, k, v, bh, bw, scale):
@@ -476,8 +476,11 @@ def _check_relpos2d(q, k, v, bh, bw):
 
 
 def _relpos2d_lib():
+    """K3's entry point and the query of the path its last call took (K1's:
+    the library keeps one per thread for both entry points)."""
     from . import _build
 
+    _, path = _lib()
     fn = _build.load("flash_fwd").ia2p_flash_relpos2d
     if fn.argtypes is None:
         fn.argtypes = (
@@ -485,14 +488,16 @@ def _relpos2d_lib():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-    return fn
+    return fn, path
 
 
 def flash_relpos2d_cuda(q, k, v, bh, bw, scale: float):
     """Launch K3 on PyTorch's current stream; the output comes from
     `torch.empty_like(q)`. Raises on input the kernel does not take, on an
     input that requires a gradient while grad mode is on (K3 has no
-    backward), and on a refused launch."""
+    backward), and on a refused launch. Each launch is counted in
+    `launches` and, by the path the library reports (K1_PATHS: wgmma, the
+    only one K3 has), in `launches_by_path`."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bh, bw)):
         raise RuntimeError("flash_attention_relpos2d: the CUDA kernel has no backward; call it "
                            "under torch.no_grad() or on inputs that need no gradient")
@@ -501,19 +506,21 @@ def flash_relpos2d_cuda(q, k, v, bh, bw, scale: float):
     o = torch.empty_like(q)
     if b * h == 0:
         return o
-    fn = _relpos2d_lib()
+    fn, last_path = _relpos2d_lib()
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bh.data_ptr(), bw.data_ptr(),
-                o.data_ptr(), b, h, n, bh.shape[-1], d, *strides, float(scale), stream)
+    rc = _on_stream(q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), bh.data_ptr(),
+                    bw.data_ptr(), o.data_ptr(), b, h, n, bh.shape[-1], d, *strides, float(scale))
+    path = K1_PATHS[last_path()]
     if rc != 0:
-        raise RuntimeError(f"flash_attention_relpos2d: kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"flash_attention_relpos2d: kernel launch ({path} path) failed with "
+                           f"CUDA error {rc}")
     flash_relpos2d_cuda.launches += 1
+    flash_relpos2d_cuda.launches_by_path[path] += 1
     return o
 
 
 flash_relpos2d_cuda.launches = 0  # K3 launches in this process
+flash_relpos2d_cuda.launches_by_path = dict.fromkeys(K1_PATHS, 0)  # the same, by path taken
 
 
 def flash_attention_relpos2d(q, k, v, bh, bw, scale: Optional[float] = None) -> torch.Tensor:

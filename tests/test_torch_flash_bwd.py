@@ -463,10 +463,12 @@ def test_build_copies_writes_each_patched_copy(tmp_path, monkeypatch):
 
 
 def test_planted_faults_patch_real_code():
-    """Every planted fault of chip_smoke.py (K1's mma.sync, fma and wgmma
-    loops, K2, K3, K4's two-kernel and fused paths) names source text that
-    occurs exactly once in the file it patches, so each broken copy differs
-    from the real kernel."""
+    """Every planted fault of chip_smoke.py (K1's fma and wgmma loops and
+    its head_dim 80 tail boxes, K2, K3's bias policy, K4's two-kernel and
+    fused paths) names source text that occurs exactly once in the file it
+    patches, so each broken copy differs from the real kernel. At least 5
+    patch the wgmma forward's bias policy and head_dim 80 code, which took
+    the place of the mma.sync loop and its 6 faults."""
     import chip_smoke
 
     sets = ((chip_smoke.FAULTS, "flash_fwd"), (chip_smoke.QMV_FAULTS, "qmv"),
@@ -480,12 +482,16 @@ def test_planted_faults_patch_real_code():
             if target in wgmma:
                 wgmma[target] += 1
     assert min(wgmma.values()) >= 5, wgmma
+    new_code = [n for n, f in {**chip_smoke.FAULTS, **chip_smoke.K3_FAULTS}.items()
+                if f[3:] == ("flash_fwd_sm90.cuh",) and n.startswith(("d80_", "bias_"))]
+    assert len(new_code) >= 6, new_code
+    assert not [n for n in chip_smoke.FAULTS if n.startswith("mma_")]
 
 
 def test_k1_counts_launches_by_path():
     """The wrapper keeps a launch count per path beside the total; a CPU
     call runs the plain version and counts nothing."""
-    assert fa.K1_PATHS == ("fma", "mma", "wgmma")
+    assert fa.K1_PATHS == ("fma", "wgmma")
     assert set(fa.flash_fwd_cuda.launches_by_path) == set(fa.K1_PATHS)
     q = t(randn(7, 1, 2, 16, 64))
     before = dict(fa.flash_fwd_cuda.launches_by_path)

@@ -50,9 +50,11 @@ def sam_pair():
     return jcfg, params, _port_cfg(jcfg), convert.sam(tree, _port_cfg(jcfg))
 
 
-@pytest.mark.parametrize("g", [8, 16])
-def test_relpos2d_plain_matches_pallas_interpret(g):
-    b, h, d, n = 1, 2, 32, g * g
+@pytest.mark.parametrize("g,d", [(8, 32), (16, 32), (14, 80)], ids=["8", "16", "14-80"])
+def test_relpos2d_plain_matches_pallas_interpret(g, d):
+    """g = 14, D = 80 is SAM ViT-H's window grid and head dim (the Pallas
+    kernel takes block_k 98 there)."""
+    b, h, n = 1, 2, g * g
     seed = 100 + g
     q, k, v = (randn(seed + i, b, h, n, d) for i in range(3))
     bh, bw = randn(seed + 3, b, h, n, g), randn(seed + 4, b, h, n, g)
@@ -66,6 +68,80 @@ def test_relpos2d_plain_matches_pallas_interpret(g):
     o_v = fa.flash_attention_relpos2d(*views, t(bh), t(bw))
     assert fa.flash_relpos2d_cuda.launches == before
     assert_close(o_v, o_j, RELPOS_TOL, seed, what="relpos2d o, strided views")
+
+
+def _fake_relpos2d_library(monkeypatch, code, rc=0):
+    """Stand in for `ia2p_flash_relpos2d` on the CPU: the call returns `rc`
+    and records its arguments, the path query returns `code`. The device
+    checks are lifted and the stream is None."""
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return rc
+
+    monkeypatch.setattr(fa, "_check_relpos2d", lambda *_: None)
+    monkeypatch.setattr(fa, "_relpos2d_lib", lambda: (fn, lambda: code))
+    monkeypatch.setattr(fa, "_on_stream", lambda device, f, *args: f(*args, None))
+    return calls
+
+
+@pytest.mark.parametrize("code", range(len(fa.K1_PATHS)))
+def test_relpos2d_counts_launches_by_path(monkeypatch, code):
+    """K3's wrapper counts each launch once in `launches` and once under the
+    path the library reports; a refused launch raises, naming that path,
+    and counts nothing."""
+    calls = _fake_relpos2d_library(monkeypatch, code)
+    q = torch.ones(2, 3, 196, 80, dtype=torch.bfloat16)
+    bias = torch.zeros(2, 3, 196, 14)
+    path = fa.K1_PATHS[code]
+    before = (fa.flash_relpos2d_cuda.launches, dict(fa.flash_relpos2d_cuda.launches_by_path))
+    o = fa.flash_relpos2d_cuda(q, q, q, bias, bias, 0.1)
+    assert o.shape == q.shape and o.dtype == q.dtype
+    assert len(calls) == 1 and calls[0][6:11] == (2, 3, 196, 14, 80)
+    assert fa.flash_relpos2d_cuda.launches == before[0] + 1
+    assert fa.flash_relpos2d_cuda.launches_by_path == {
+        p: n + (p == path) for p, n in before[1].items()}
+    _fake_relpos2d_library(monkeypatch, code, rc=700)
+    with pytest.raises(RuntimeError, match=f"{path} path"):
+        fa.flash_relpos2d_cuda(q, q, q, bias, bias, 0.1)
+    assert fa.flash_relpos2d_cuda.launches == before[0] + 1
+    assert fa.flash_relpos2d_cuda.launches_by_path["wgmma"] == before[1]["wgmma"] + (code == 1)
+
+
+def test_encoder_routes_every_bf16_card_block_to_k3(monkeypatch):
+    """The router sends a bf16 call on the card to K3 at SAM ViT-H's window
+    grid (N = 196) and global grid (N = 4096), and a CPU or float32 call to
+    the plain version; `_attn_with_relpos` follows it, passing K3 the
+    (B, H, N, D) views of its (B, N, H, D) inputs."""
+    cfg = tsam.SAMConfig.vit_h()
+    window, grid = cfg.window ** 2, (cfg.img_size // cfg.patch) ** 2
+    for n in (window, grid):
+        assert tsam.k3_routed("cuda", torch.bfloat16, n)
+        assert not tsam.k3_routed("cpu", torch.bfloat16, n)
+        assert not tsam.k3_routed("cuda", torch.float32, n)
+    assert tsam.K3_MIN_TOKENS <= window
+
+    seen = []
+
+    def fake_k3(q, k, v, bh, bw, scale=None):
+        seen.append((q, bh))
+        return fa._reference_relpos2d(q, k, v, bh, bw, scale)
+
+    monkeypatch.setattr(tsam, "flash_attention_relpos2d", fake_k3)
+    block = tsam.EncBlock(32, 4, 2 * 3 - 1)
+    with torch.no_grad():
+        for prm in block.parameters():
+            prm.copy_(torch.from_numpy(randn(7, *prm.shape)))
+    q, k, v = (t(randn(600 + i, 2, 9, 4, 8)) for i in range(3))
+    plain = tsam._attn_with_relpos(q, k, v, block, 3, 4)  # float32 on the CPU: the plain version
+    assert not seen
+    monkeypatch.setattr(tsam, "k3_routed", lambda device_type, dtype, n: True)
+    routed = tsam._attn_with_relpos(q, k, v, block, 3, 4)
+    ((qk, bh),) = seen
+    assert qk.shape == (2, 4, 9, 8) and torch.equal(qk, q.transpose(1, 2))
+    assert bh.shape == (2, 4, 9, 3)
+    assert torch.equal(routed, plain)
 
 
 def test_relpos2d_kernel_wrapper_rejects_cpu_tensors():
