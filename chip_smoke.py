@@ -19,12 +19,15 @@ printed only when every phase passed):
      port) with CUDA events;
   3. K2 (the quantized decode matvec) against its plain version in bf16
      at the four fused Vicuna-7B decode shapes (M = 1 and 16), the unfused
-     int8 and int4 formats and the four shapes of the TPU probe, within a
-     limit scaled to each element (QMV_TOL); times K2 on weights that do
-     not stay in L2 (device time from a CUDA graph of the calls, and the
-     eager time with the host's launch cost), the plain version, and
-     F.linear on bf16 weights dequantized ahead of time (the yardstick,
-     never called by the port);
+     int8 and int4 formats and the four shapes of the TPU probe, and in
+     float32 at two shapes, within a limit scaled to each element
+     (QMV_TOL), each row on the path the kernel must take (it reports the
+     one it took: mma for bf16 with int4 weights, fma otherwise) with its
+     cluster schedulable (cudaOccupancyMaxActiveClusters, printed); times
+     K2 on weights that do not stay in L2 (device time from a CUDA graph
+     of the calls, and the eager time with the host's launch cost), the
+     plain version, and F.linear on bf16 weights dequantized ahead of time
+     (the yardstick, never called by the port);
   4. the full width: PipelineConfig() in bf16 with random weights from a
      seed: Vicuna-7B int4 group-128 with fused projections (int8 lm_head),
      ImageBind-huge vision and audio, the GPT-2 prior and its CLIP-ViT-H
@@ -32,14 +35,14 @@ printed only when every phase passed):
      Two text2img requests (plain, and IP) with exact K1 counts; one CFG
      UNet step timed and profiled; then the edit: `forward_llm` on a
      written PNG and WAV (K2 launched exactly 128 times per decode step,
-     K1 by the ImageBind trunks), the prefill and per-token decode times
+     all on its mma path, K1 by the ImageBind trunks), the prefill and per-token decode times
      against their bound with K2's share of a decode step from
      torch.profiler, and `__call__` on a seeded LLM cache (finite
      1024x1024 images, exact K1 count, seconds per stage, peak memory);
   5. the tiny config in fp32 on the card against the same weights on the
      CPU, with a small int4-grouped LLM: text2img and edit images agree
      within 1 level (the edit also with subject consistency through a tiny
-     SAM), greedy tokens are identical.
+     SAM), greedy tokens are identical (K2 on its fma path).
 After phase 3, K3 (SAM's rel-pos flash attention) against its plain
 version in bf16 at the SAM ViT-H global and window shapes, two ragged
 grids and head_dim 64, on contiguous inputs, on (B, N, H, D) views and
@@ -73,9 +76,10 @@ the CPU (3 steps on K4's fma path, then a falling loss at lr 5e-3, then a
 save and a resume).
 
 Every main-path run reads the K1, K2, K3, K4, K4a and K4b counters, set to
-0 just before it (K1's and K4's also by the path each launch took); K3
-must stay at 0 outside subject consistency, K4 outside training, and K4a
-and K4b (the two-kernel entry points) everywhere.
+0 just before it (K1's, K2's and K4's also by the path each launch took);
+K2 must stay at 0 outside `forward_llm`, K3 outside subject consistency,
+K4 outside training, and K4a and K4b (the two-kernel entry points)
+everywhere.
 Then a {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. `--out PATH` also writes every reading
 as JSON.
@@ -215,32 +219,63 @@ def reset_k3(fa):
 # statistics and silu are computed in another order on each side, so a
 # rounded x'_k may land on the neighbouring bf16 value (2^-8 relative): a
 # sum whose spread is under 2^-8 sigma, and 2^-6 sigma is 4 of those. The
-# float32 sums over K <= 11008 terms in another order differ by about
-# sqrt(K) 2^-24 A < 2^-17 A; 2^-14 A is 8 of those.
+# float32 sums over K <= 28672 terms in another order differ by about
+# sqrt(K) 2^-24 A < 2^-16 A; 2^-14 A is 4 of those. On the mma path the
+# tensor cores sum each group's 128 exact products (bf16 x' times int4)
+# before the float32 running sum: the same float32 terms in another order.
 QMV_TOL = {"ulp": 2.0**-7, "stol": 2.0**-6, "atol": 2.0**-14}
 QMV_SHAPES = [
-    # (label, K, N, format, fusion, rows M)
-    ("7B qkv + norm", 4096, 12288, "int4g", "norm", (1, 16)),
-    ("7B o + residual", 4096, 4096, "int4g", "residual", (1, 16)),
-    ("7B gate_up + norm", 4096, 22016, "int4g", "norm", (1, 16)),
-    ("7B down + swiglu + residual", 11008, 4096, "int4g", "swiglu+residual", (1, 16)),
-    ("int8 per-channel", 4096, 4096, "int8", "none", (1,)),
-    ("int4 per-channel", 4096, 11008, "int4", "none", (1,)),
+    # (label, K, N, format, fusion, rows M, activations)
+    ("7B qkv + norm", 4096, 12288, "int4g", "norm", (1, 16), "bfloat16"),
+    ("7B o + residual", 4096, 4096, "int4g", "residual", (1, 16), "bfloat16"),
+    ("7B gate_up + norm", 4096, 22016, "int4g", "norm", (1, 16), "bfloat16"),
+    ("7B down + swiglu + residual", 11008, 4096, "int4g", "swiglu+residual", (1, 16), "bfloat16"),
+    ("int8 per-channel", 4096, 4096, "int8", "none", (1, 16), "bfloat16"),
+    ("int4 per-channel", 4096, 11008, "int4", "none", (1,), "bfloat16"),
     # the TPU probe's shapes (benchmarks/qmv_dma_probe.py:29), int4 group 128
-    ("probe qkv", 4096, 12288, "int4g", "none", (1,)),
-    ("probe o", 4096, 4096, "int4g", "none", (1,)),
-    ("probe up", 4096, 11008, "int4g", "none", (1,)),
-    ("probe down", 11008, 4096, "int4g", "none", (1,)),
+    ("probe qkv", 4096, 12288, "int4g", "none", (1,), "bfloat16"),
+    ("probe o", 4096, 4096, "int4g", "none", (1,), "bfloat16"),
+    ("probe up", 4096, 11008, "int4g", "none", (1,), "bfloat16"),
+    ("probe down", 11008, 4096, "int4g", "none", (1,), "bfloat16"),
+    # the fma path with float32 activations, as the tiny decode runs it
+    ("fp32 qkv + norm", 4096, 4096, "int4g", "norm", (3, 16), "float32"),
+    ("fp32 int4 down + swiglu + residual", 11008, 4096, "int4", "swiglu+residual", (4,),
+     "float32"),
+    # int4 groups other than 128 (the format's suffix): a multiple of 128 on
+    # the tensor cores, a group that ends inside a stage on the CUDA cores
+    ("int4 group 256 + residual", 4096, 4096, "int4g256", "residual", (1,), "bfloat16"),
+    ("int4 group 64 + norm", 4096, 4096, "int4g64", "norm", (1, 16), "bfloat16"),
+    # K % 8 != 0: x, up and the gains read at any alignment, the last
+    # vector partial
+    ("int8 K=4099 + norm", 4099, 4096, "int8", "norm", (1,), "bfloat16"),
+    ("int4 K=2052 + swiglu + residual", 2052, 4096, "int4", "swiglu+residual", (3,), "bfloat16"),
+    # chunks whose x' does not fit the shared memory, staged in windows
+    ("70B down K + swiglu + norm", 28672, 4096, "int4g", "swiglu+norm", (16,), "bfloat16"),
+    ("fp32 K=16384 + swiglu + norm", 16384, 4096, "int4g", "swiglu+norm", (16,), "float32"),
 ]
-# Deliberately broken copies of K2 that the check must refuse.
+# Deliberately broken copies of K2 (csrc/qmv.cu) that the check must refuse.
 QMV_FAULTS = {
-    "hi_nibble_unsigned": (
-        "int4: the high nibble is read without sign extension",
-        "const float hi = (float)(int32_t(wd << (24 - 8 * c)) >> 28);",
-        "const float hi = (float)((wd >> (8 * c + 4)) & 0xFu);"),
+    "nibble_xor_dropped": (
+        "mma path: the nibbles are read as offset binary without the XOR with 8",
+        '"r"(0x000F000Fu), "r"(0x43084308u)', '"r"(0x000F000Fu), "r"(0x43004300u)'),
+    "high_nibble_next_byte": (
+        "mma path: the odd row's nibble taken from the next byte, not bits 4-7 of its own",
+        "v4[q] = v[q] >> 4;", "v4[q] = v[q] >> 8;"),
     "group_scale_first": (
-        "int4 group 128: every group of a chunk takes the chunk's first group scale",
-        "const int gidx = k0 / p.group + gs / gb;", "const int gidx = k0 / p.group;"),
+        "int4 group 128: every stage of a chunk takes the chunk's first group scale",
+        "(s0 + s) * kK / p.group);", "s0 * kK / p.group);"),
+    "cluster_rank_dropped": (
+        "the partial sums of cluster rank 0 are left out of the DSMEM sum",
+        "for (int q = 0; q < csize; ++q) s += recv[(q * p.M + m) * cols + cl];",
+        "for (int q = 1; q < csize; ++q) s += recv[(q * p.M + m) * cols + cl];"),
+    "norm_stats_own_chunk": (
+        "RMSNorm statistics from the block's own chunk of the row only",
+        "for (int q = 0; q < csize; ++q) t += ss[q * kMaxM + tid];",
+        "t = ss[rank * kMaxM + tid];"),
+    "columns_unpermuted": (
+        "mma path: the output columns written under the unpermuted fragment mapping",
+        "const int col = 8 * slot_of(e < 2 ? g : g + 8) + j;",
+        "const int col = 8 * (e < 2 ? g : g + 8) + j;"),
     "residual_dropped": (
         "the residual is not added",
         "  if (p.residual) y = round_act(y + load_act(p.residual, o, p.act), p.act);\n", ""),
@@ -479,38 +514,53 @@ def _k1_row(failures, timed, dtype, dname, label, shape, sk, causal):
     return row
 
 
-def qmv_bound(m, k, n, xk, fmt, fusion):
+def qmv_bound(m, k, n, xk, fmt, fusion, dname="bfloat16"):
     """Least time for one K2 call: bytes (packed W, scales, x, g, residual,
     out, each once) over 3.35 TB/s, or the multiply-adds over the peak for
-    their type (int4 formats multiply float32 activations, 67 TFLOP/s on
-    the CUDA cores; int8 multiplies bf16 ones, 989 TFLOP/s)."""
+    their type: bf16 activations times int4 or int8 weights are exact bf16
+    products (989 TFLOP/s on the tensor cores), float32 activations run on
+    the CUDA cores (67 TFLOP/s)."""
+    fmt, group = qmv_format(fmt)
     wbytes = (k // 2 if fmt != "int8" else k) * n
-    sbytes = 4 * n * (k // 128 if fmt == "int4g" else 1)
-    nbytes = wbytes + sbytes + 2 * m * xk + 2 * m * n
+    sbytes = 4 * n * (k // group if fmt == "int4g" else 1)
+    act = 2 if dname == "bfloat16" else 4
+    nbytes = wbytes + sbytes + act * m * xk + act * m * n
     if "norm" in fusion:
-        nbytes += 4 * xk
+        nbytes += act * xk  # the gains, in x's dtype
     if "residual" in fusion:
-        nbytes += 2 * m * n
+        nbytes += act * m * n
     flops = 2.0 * m * k * n
     t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS["float32" if fmt != "int8" else "bfloat16"]
+    t_ops = flops / PEAK_FLOPS[dname]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations"), nbytes
 
 
-def _qmv_inputs(k, n, fmt, fusion, m, seed):
+def qmv_format(fmt):
+    """A QMV_SHAPES format and its group: "int4g" is group 128, "int4g64"
+    group 64."""
+    if fmt.startswith("int4g"):
+        return "int4g", int(fmt[5:] or 128)
+    return fmt, 128
+
+
+def _qmv_inputs(k, n, fmt, fusion, m, seed, dname="bfloat16"):
     import torch
 
     from instructany2pix_tpu_torch.ops import quant as Q
 
     g = torch.Generator("cuda").manual_seed(seed)
+    fmt, group = qmv_format(fmt)
     quant = {"int8": Q.quantize_weight, "int4": Q.quantize_weight_int4,
-             "int4g": Q.quantize_weight_int4_grouped}[fmt]
+             "int4g": lambda w: Q.quantize_weight_int4_grouped(w, group)}[fmt]
     q = quant(torch.randn((k, n), generator=g, device="cuda") * k**-0.5)
     swiglu = "swiglu" in fusion
     xk = 2 * k if swiglu else k
-    x = torch.randn((m, xk), generator=g, device="cuda").bfloat16()
-    gain = (torch.randn(xk, generator=g, device="cuda") * 0.1 + 1.0) if "norm" in fusion else None
-    r = (torch.randn((m, n), generator=g, device="cuda").bfloat16() if "residual" in fusion
+    dtype = getattr(torch, dname)
+    x = torch.randn((m, xk), generator=g, device="cuda").to(dtype)
+    # the gain in x's dtype, as the model holds its norm weights
+    gain = ((torch.randn(xk, generator=g, device="cuda") * 0.1 + 1.0).to(dtype) if "norm" in fusion
+            else None)
+    r = (torch.randn((m, n), generator=g, device="cuda").to(dtype) if "residual" in fusion
          else None)
     return q, x, gain, swiglu, r
 
@@ -551,34 +601,50 @@ def qmv_reading(y, ref, q, x, gain, swiglu, r):
 
 
 def phase_qmv(failures, timed=True):
-    """K2 against its plain version at every QMV_SHAPES entry, in bf16; with
-    `timed`, K2 (rotating weight copies that together exceed L2, as decode
-    finds its weights cold; a CUDA graph of the calls, and eager), the
-    plain version and F.linear on bf16 weights dequantized ahead of time,
-    timed with CUDA events."""
+    """K2 against its plain version at every QMV_SHAPES entry; each row on
+    the path the kernel must take (Q.qmv_path: mma for bf16 with int4
+    weights, fma otherwise), which it reports, with its cluster
+    schedulable (cudaOccupancyMaxActiveClusters > 0); with `timed`, K2
+    (rotating weight copies that together exceed L2, as decode finds its
+    weights cold; a CUDA graph of the calls, and eager), the plain version
+    and F.linear on bf16 weights dequantized ahead of time, timed with
+    CUDA events."""
     import torch
     import torch.nn.functional as F
 
     from instructany2pix_tpu_torch.ops import quant as Q
 
     rows = []
-    for si, (label, k, n, fmt, fusion, ms_) in enumerate(QMV_SHAPES):
+    for si, (label, k, n, fmt, fusion, ms_, dname) in enumerate(QMV_SHAPES):
         for m in ms_:
-            q, x, gain, swiglu, r = _qmv_inputs(k, n, fmt, fusion, m, 1000 + si)
+            q, x, gain, swiglu, r = _qmv_inputs(k, n, fmt, fusion, m, 1000 + si, dname)
             xk = x.shape[1]
+            before = dict(Q.qmv_cuda.launches_by_path)
             y = Q.qmv_cuda(x, q, gain, 1e-6, swiglu, r)
+            taken = {p: c - before[p] for p, c in Q.qmv_cuda.launches_by_path.items()
+                     if c != before[p]}
             ref = Q._qmv_reference(x, q, gain, 1e-6, swiglu, r)
-            row = {"label": label, "format": fmt, "fusion": fusion, "m": m, "k": k, "n": n,
-                   **qmv_reading(y, ref, q, x, gain, swiglu, r)}
-            chunk, ksplit = Q.qmv_plan(m, k, n, 128 if fmt == "int4g" else 0)
-            row["chunk"], row["ksplit"] = chunk, ksplit
+            base, group = qmv_format(fmt)
+            plan = Q.qmv_plan(m, k, n, base, x.dtype, swiglu, gain is not None, group)
+            expected = Q.qmv_path(base, x.dtype, group)
+            clusters = Q.qmv_max_active_clusters(q, m, x.dtype, swiglu, gain is not None)
+            reading = qmv_reading(y, ref, q, x, gain, swiglu, r)
+            row = {"label": label, "format": fmt, "fusion": fusion, "dtype": dname, "m": m,
+                   "k": k, "n": n, **reading, "path": "/".join(sorted(taken)),
+                   "path_expected": expected, "chunk": plan.chunk, "cluster": plan.cluster,
+                   "blocks": plan.cluster * n // plan.tile, "max_active_clusters": clusters}
+            row["ok"] = reading["ok"] and taken == {expected: 1} and clusters > 0
             if not row["ok"]:
                 failures.append(f"K2 {label} M={m}: |y| {row['err']:.3g} = "
-                                f"{row['of_limit']:.3g} of its limit")
-            msg = (f"K2 {label:28s} {fmt:5s} M={m:<2d} K={k:<5d} N={n:<5d} split {ksplit:2d}x{chunk:<4d} "
+                                f"{row['of_limit']:.3g} of its limit, path {row['path']} "
+                                f"(expected {expected}), {clusters} clusters schedulable")
+            msg = (f"K2 {label:34s} {fmt:8s} {dname[:4]} M={m:<2d} K={k:<5d} N={n:<5d} "
+                   f"{row['path']} cluster {plan.cluster}x{plan.chunk:<4d} "
+                   f"({row['blocks']} blocks, {clusters} clusters resident) "
                    f"|y|={row['err']:.3g} (of limit {row['of_limit']:.3f})")
             if timed:
-                row["bound_ms"], row["bound_by"], nbytes = qmv_bound(m, k, n, xk, fmt, fusion)
+                row["bound_ms"], row["bound_by"], nbytes = qmv_bound(m, k, n, xk, fmt, fusion,
+                                                                     dname)
                 wkey = "w_q4" if "w_q4" in q else "w_q"
                 copies = [q] + [{kk: v.clone() for kk, v in q.items()}
                                 for _ in range(-(-2 * L2_BYTES // q[wkey].numel()) - 1)]
@@ -589,15 +655,16 @@ def phase_qmv(failures, timed=True):
                 row["weight_copies"] = len(copies)
                 del copies, calls
                 row["plain_ms"] = time_ms(lambda: Q._qmv_reference(x, q, gain, 1e-6, swiglu, r), 3, 1)
-                h = Q._prologue(x, gain, 1e-6, swiglu)
+                h = Q._prologue(x, gain, 1e-6, swiglu).bfloat16()
                 wt = _dequant(q).T.contiguous().bfloat16()
                 lib = [wt] + [wt.clone() for _ in range(-(-2 * L2_BYTES // (2 * wt.numel())) - 1)]
                 row["library_ms"] = graph_ms([lambda w=w: F.linear(h, w) for w in lib])
                 del lib, wt
                 row["gbps"] = nbytes / (row["ms"] * 1e-3) / 1e9
+                row["of_bound"] = row["ms"] / row["bound_ms"]
                 msg += (f" ms={row['ms']:.4f} (eager {row['ms_eager']:.4f}) plain={row['plain_ms']:.4f} "
                         f"F.linear(bf16 W)={row['library_ms']:.4f} bound={row['bound_ms']:.4f} "
-                        f"({row['bound_by']}) {row['gbps']:.0f} GB/s")
+                        f"({row['bound_by']}, x{row['of_bound']:.2f}) {row['gbps']:.0f} GB/s")
             log(msg + (" ok" if row["ok"] else " FAIL"))
             rows.append(row)
             del q, x, gain, r, y, ref
@@ -1369,7 +1436,7 @@ def phase_full_width(failures):
         for name, kw, expected in requests:
             reset_k1(fa)
             reset_k3(fa)
-            Q.qmv_cuda.launches = 0
+            Q.reset_qmv_counts()
             reset_k4(fa)
             t0 = time.time()
             img = pipe.text2img("a photo of a cat in an antique shop", num_inference_steps=STEPS,
@@ -1380,17 +1447,18 @@ def phase_full_width(failures):
             k2, k3 = Q.qmv_cuda.launches, fa.flash_relpos2d_cuda.launches
             k4 = no_k4(fa, failures, f"request {name}")
             ok = (img.shape == (1024, 1024, 3) and img.dtype == np.uint8 and finite[-1]
-                  and launches == expected and k3 == 0)
+                  and launches == expected and k2 == 0 and k3 == 0)
             if not ok:
                 failures.append(f"request {name}: shape {img.shape} {img.dtype} finite "
                                 f"{finite[-1]} K1 launches {launches} (expected {expected}), "
-                                f"K3 launches {k3} (expected 0)")
+                                f"K2 {k2}, K3 launches {k3} (expected 0)")
             out["requests"].append({"name": name, "seconds": dt, "k1_launches": launches,
                                     "k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
                                     "k1_expected": expected, "k2_launches": k2,
+                                    "k2_by_path": dict(Q.qmv_cuda.launches_by_path),
                                     "k3_launches": k3, **k4, "mean_pixel": float(img.mean())})
             log(f"request {name}: {dt:.3f} s, {STEPS} steps, K1 launches {launches} "
-                f"(expected {expected}), K2 {k2}, K3 {k3} (expected 0), image {img.shape} "
+                f"(expected {expected}), K2 {k2}, K3 {k3} (both expected 0), image {img.shape} "
                 f"{img.dtype} mean {img.mean():.2f}, finite {finite[-1]}")
         out["text2img_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1501,7 +1569,7 @@ def phase_edit(pipe, failures, finite):
         pipe.stage_times = {}
         reset_k1(fa)
         reset_k3(fa)
-        Q.qmv_cuda.launches = 0
+        Q.reset_qmv_counts()
         reset_k4(fa)
         t0 = time.time()
         res = pipe.forward_llm(inst, media, generator=torch.Generator("cuda").manual_seed(0))
@@ -1515,6 +1583,7 @@ def phase_edit(pipe, failures, finite):
         k1_expected = cfg.imagebind_vision.layers + cfg.imagebind_audio.layers
         per_step = 4 * cfg.llm.llama.num_layers
         out.update({"k1_launches": k1, "k1_expected": k1_expected, "k2_launches": k2,
+                    "k2_by_path": dict(Q.qmv_cuda.launches_by_path),
                     "k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
                     "k3_launches": k3, "decode_steps": steps, "k2_expected": per_step * steps,
                     "stage_seconds": dict(pipe.stage_times), "caption": res[2][:120],
@@ -1523,14 +1592,16 @@ def phase_edit(pipe, failures, finite):
         # the ImageBind trunks are bf16 at head_dim 80 (vision) and 64 (audio): all wgmma
         ok = (isinstance(res, tuple) and len(res) == 5 and isinstance(res[2], str)
               and k1 == k1_expected and out["k1_by_path"]["wgmma"] == k1
-              and k2 == per_step * steps and steps > 0 and k3 == 0)
+              and k2 == per_step * steps and out["k2_by_path"]["mma"] == k2 and steps > 0
+              and k3 == 0)
         if not ok:
             failures.append(f"forward_llm: K1 {k1} by path {out['k1_by_path']} (expected "
-                            f"{k1_expected}, all wgmma), K2 {k2} (expected "
-                            f"{per_step} x {steps} decode steps), K3 {k3} (expected 0), "
-                            f"result {type(res)}")
+                            f"{k1_expected}, all wgmma), K2 {k2} by path {out['k2_by_path']} "
+                            f"(expected {per_step} x {steps} decode steps, all mma), K3 {k3} "
+                            f"(expected 0), result {type(res)}")
         log(f"forward_llm: {out['forward_llm_seconds']:.3f} s ({', '.join(f'{k} {v:.3f} s' for k, v in pipe.stage_times.items())}), "
-            f"{steps} decode steps, K2 launches {k2} (expected {per_step * steps}), K1 launches "
+            f"{steps} decode steps, K2 launches {k2} {out['k2_by_path']} (expected "
+            f"{per_step * steps}, all mma), K1 launches "
             f"{k1} {out['k1_by_path']} (expected {k1_expected}: the ImageBind trunks, all wgmma), "
             f"K3 launches {k3} (expected 0), "
             f"caption {res[2][:60]!r}")
@@ -1597,6 +1668,12 @@ def phase_edit(pipe, failures, finite):
             k2_share = {"k2_kernel_ms": k2_ms, "of_kernel_time": k2_ms / prof["kernel_ms"],
                         "of_step": k2_ms / td[10]}
             out["k2_share"] = k2_share
+            # one launch per qmatmul call: qmv_kernel alone, once per linear
+            names = prof["k2_kernels"]
+            if (sum(names.values()) != per_step
+                    or any("qmv_kernel" not in name for name in names)):
+                failures.append(f"decode step profile: K2 kernels {names} (expected "
+                                f"{per_step} launches of qmv_kernel alone)")
         log(f"prefill ({s + pp} tokens, {pp} of them left pad): {out['prefill_ms']:.2f} ms; decode "
             f"step median {td[10]:.3f} ms of 21 (min {td[0]:.3f}, max {td[-1]:.3f}) against a "
             f"bound of {bound['step_ms']:.3f} ms (K2's weights {bound['k2_ms']:.3f} ms, int8 "
@@ -1623,7 +1700,7 @@ def phase_edit(pipe, failures, finite):
         pipe.stage_times = {}
         reset_k1(fa)
         reset_k3(fa)
-        Q.qmv_cuda.launches = 0
+        Q.reset_qmv_counts()
         reset_k4(fa)
         n_decoded = len(finite)
         t0 = time.time()
@@ -1636,6 +1713,7 @@ def phase_edit(pipe, failures, finite):
         out.update({"call_stage_seconds": dict(pipe.stage_times), "call_k1_launches": k1,
                     "call_k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
                     "call_k1_expected": expected, "call_k2_launches": Q.qmv_cuda.launches,
+                    "call_k2_by_path": dict(Q.qmv_cuda.launches_by_path),
                     "call_k3_launches": k3,
                     "call_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "mean_pixels": [float(non_refined.mean()), float(refined.mean())]})
@@ -1644,13 +1722,15 @@ def phase_edit(pipe, failures, finite):
         images_ok = all(a.shape == (size, size, 3) and a.dtype == np.uint8
                         for a in (non_refined, refined))
         all_finite = len(finite) - n_decoded == 2 and all(finite[n_decoded:])
-        if not (images_ok and all_finite and msg == "SUCCESS!" and k1 == expected and k3 == 0):
+        k2 = out["call_k2_launches"]
+        if not (images_ok and all_finite and msg == "SUCCESS!" and k1 == expected and k2 == 0
+                and k3 == 0):
             failures.append(f"__call__: images ok {images_ok}, finite {all_finite}, msg {msg!r}, "
-                            f"K1 {k1} (expected {expected}), K3 {k3} (expected 0)")
+                            f"K1 {k1} (expected {expected}), K2 {k2}, K3 {k3} (expected 0)")
         log(f"__call__ (edit, {EDIT_STEPS} inversion + {EDIT_STEPS} denoise steps, refiner "
             f"{ref_steps} of 50): {out['call_seconds']:.3f} s; " + ", ".join(
                 f"{k} {v:.3f} s" for k, v in out["call_stage_seconds"].items())
-            + f"; K1 launches {k1} (expected {expected}), K3 {k3} (expected 0); images {non_refined.shape} "
+            + f"; K1 launches {k1} (expected {expected}), K2 {k2}, K3 {k3} (both expected 0); images {non_refined.shape} "
             f"{non_refined.dtype}, finite {all_finite}; peak {out['call_peak_gib']:.2f} GiB")
         pipe.cache = None
     return out
@@ -1761,7 +1841,7 @@ def phase_subject(pipe, failures, finite):
         pipe.stage_times = {}
         reset_k1(fa)
         reset_k3(fa)
-        Q.qmv_cuda.launches = 0
+        Q.reset_qmv_counts()
         reset_k4(fa)
         n_decoded = len(finite)
         t0 = time.time()
@@ -1780,6 +1860,7 @@ def phase_subject(pipe, failures, finite):
                 "k1_expected": k1_expected, "k3_launches": k3, "k3_by_path": k3_by_path,
                 "k3_expected": scfg.depth * len(masks), "segmentor_calls": len(masks),
                 "k2_launches": Q.qmv_cuda.launches,
+                "k2_by_path": dict(Q.qmv_cuda.launches_by_path),
                 "mask_fraction": [float(m.mean()) for m in masks],
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                 "inpaint_steps": inpaint_steps, "mean_pixel": float(edited.mean())})
@@ -1788,11 +1869,13 @@ def phase_subject(pipe, failures, finite):
     ok = (edited.shape == (cfg.image_size, cfg.image_size, 3) and edited.dtype == np.uint8
           and all_finite and msg == "SUCCESS!" and len(masks) == 1
           and k3 == scfg.depth * len(masks) and k3_by_path.get("wgmma") == k3
+          and out["k2_launches"] == 0
           and k1 == k1_expected and 0 < masks[0].mean() and not np.array_equal(edited, non_refined))
     if not ok:
         failures.append(f"subject consistency: image {edited.shape} {edited.dtype}, finite "
                         f"{all_finite}, msg {msg!r}, segmentor calls {len(masks)}, K3 {k3} by path "
-                        f"{k3_by_path} (expected {scfg.depth} per call, all wgmma), K1 {k1} "
+                        f"{k3_by_path} (expected {scfg.depth} per call, all wgmma), K2 "
+                        f"{out['k2_launches']} (expected 0), K1 {k1} "
                         f"(expected {k1_expected}), mask fractions {out['mask_fraction']}")
     log(f"__call__ with subject consistency (strength {SUBJECT_STRENGTH}: {inpaint_steps} inpaint "
         f"steps of 50): {out['call_seconds']:.3f} s; " + ", ".join(
@@ -1972,7 +2055,7 @@ def phase_train(failures):
         torch.cuda.reset_peak_memory_stats()
         reset_k1(fa)
         reset_k3(fa)
-        Q.qmv_cuda.launches = 0
+        Q.reset_qmv_counts()
         reset_k4(fa)
         t_last[0] = time.perf_counter()
         res = launch.train(cfg, train_cfg, make_ds(), batch_size=TRAIN_BATCH,
@@ -2291,7 +2374,8 @@ def _profile(step, label, n):
         log(f"  {ms:8.3f} ms {count:5d}x  {_kernel_class(name):11s} {name[:90]}")
     return {"kernel_ms": total, "launches": launches, "window_ms": window_ms / n, "busy": busy,
             "by_class": by_class,
-            "top": [{"ms": ms, "count": c, "name": nm[:120]} for ms, c, nm in kernels[:12]]}
+            "top": [{"ms": ms, "count": c, "name": nm[:120]} for ms, c, nm in kernels[:12]],
+            "k2_kernels": {nm[:120]: c for _, c, nm in kernels if _kernel_class(nm) == "k2"}}
 
 
 def _tiny_config():
@@ -2395,10 +2479,14 @@ def phase_tiny_reference(failures):
         _, emb_c = cpu._prepare_llm_inputs("describe a cat in an antique shop", aux)
         lcfg = cfg.llm.llama
         kw = dict(max_new_tokens=16, temperature=0.0, eos_id=-1, bucket=64)
-        before = Q.qmv_cuda.launches
+        Q.reset_qmv_counts()
         tc = gen_lib.generate(cpu.models["llm"].llama, lcfg, emb_c, None, **kw).tokens[0]
         tg = gen_lib.generate(gpu.models["llm"].llama, lcfg, emb_c.cuda(), None, **kw).tokens[0].cpu()
-        out["greedy_k2_launches"] = Q.qmv_cuda.launches - before
+        out["greedy_k2_launches"] = Q.qmv_cuda.launches
+        out["greedy_k2_by_path"] = dict(Q.qmv_cuda.launches_by_path)
+        if Q.qmv_cuda.launches == 0 or out["greedy_k2_by_path"]["fma"] != Q.qmv_cuda.launches:
+            failures.append(f"tiny greedy decode: K2 launches {out['greedy_k2_by_path']} "
+                            f"(expected some, all fma)")
         same = bool(torch.equal(tc, tg))
         out["greedy_tokens_identical"] = same
         # teacher-forced logits over the CPU's tokens, both devices
@@ -2418,7 +2506,8 @@ def phase_tiny_reference(failures):
                 failures.append(f"tiny greedy tokens differ at {i} with a top-2 gap of {gap:.3g}")
         if rel > 1e-4:
             failures.append(f"tiny teacher-forced logits differ by {rel:.3g} of their largest")
-        log(msg + f" (K2 launches on the card: {out['greedy_k2_launches']})")
+        log(msg + f" (K2 launches on the card: {out['greedy_k2_launches']} "
+            f"{out['greedy_k2_by_path']})")
     return out
 
 
@@ -2541,6 +2630,9 @@ def main(argv=None) -> int:
         "name": "qmv",
         "route": "cuda",
         "source": "instructany2pix_tpu_torch/csrc/qmv.cu",
+        "kernel": "qmv_kernel<kMma, FMT, MT>: one launch per call, a cluster of K chunks per "
+                  "128-column tile, weights by TMA; mma.sync on int4 with bf16 activations, "
+                  "float32 fma otherwise",
         "replaces": "instructany2pix_tpu/ops/quant.py:294",
         "also_replaces": ["instructany2pix_tpu/ops/quant.py:417",
                           "benchmarks/qmv_dma_probe.py:32"],
@@ -2550,16 +2642,29 @@ def main(argv=None) -> int:
                              "edit_call": edit["call_k2_launches"],
                              "subject_call": subject["k2_launches"],
                              "train": train["launches"]["k2"]},
+        # the same launches by the kernel path each took (mma, fma), and the
+        # tiny float32 greedy decode's, off the main paths
+        "launches_by_kernel_path": {
+            "text2img": {p: sum(r["k2_by_path"][p] for r in full["requests"])
+                         for p in full["requests"][0]["k2_by_path"]},
+            "forward_llm": edit["k2_by_path"], "edit_call": edit["call_k2_by_path"],
+            "subject_call": subject["k2_by_path"], "tiny_greedy_decode": tiny["greedy_k2_by_path"]},
         "max_abs_err": max(r["err"] for r in qrows),
         "max_err_of_limit": max(r["of_limit"] for r in qrows),
         "ms": qhead["ms"],
+        "ms_eager": qhead["ms_eager"],
+        "ms_note": "device time from a CUDA graph of calls on weight copies larger than L2",
         "plain_ms": qhead["plain_ms"],
         "bound_ms": qhead["bound_ms"],
         "bound_by": qhead["bound_by"],
         "library_ms": qhead["library_ms"],
+        "library_call": "F.linear on bf16 weights dequantized ahead of time",
         "headline_shape": "7B qkv + RMSNorm, M=1, K=4096, N=12288, int4 group 128, bf16",
-        "shapes": [{k: r[k] for k in ("label", "m", "k", "n", "format", "fusion", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by", "err", "of_limit")}
+        "decode_step_k2_share": edit.get("k2_share"),
+        "shapes": [{k: r[k] for k in ("label", "m", "k", "n", "format", "fusion", "dtype", "path",
+                                      "cluster", "chunk", "max_active_clusters", "ms", "ms_eager",
+                                      "plain_ms", "library_ms", "bound_ms", "bound_by", "of_bound",
+                                      "err", "of_limit")}
                    for r in qrows],
     }
     k3head = next(r for r in k3rows if r["label"] == "sam global block")

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) pieces shared by the TMA/wgmma kernels: K1's forward
-// (flash_fwd_sm90.cuh) and K4's fused backward (flash_bwd_sm90.cuh).
-//   * mbarrier, TMA load/store/reduce-add, fences and the wgmma
-//     fence/commit/wait;
+// Hopper (sm_90a) pieces shared by the TMA kernels: K1's forward
+// (flash_fwd_sm90.cuh), K4's fused backward (flash_bwd_sm90.cuh) and K2's
+// decode matvec (qmv.cu).
+//   * mbarrier, TMA load (4-D and 2-D, with an L2 evict-first policy)/
+//     store/reduce-add, fences and the wgmma fence/commit/wait;
 //   * the shared-memory descriptor of a wgmma operand in the 128-byte
 //     swizzle (or the 32-byte one), and `keep`, which pins registers a
 //     wgmma in flight uses;
@@ -11,6 +12,8 @@
 //   * View and encode: 4-D TMA tensor maps (D, S, H, B) of bf16 operands
 //     built on the host from the tensors' own strides, in boxes of 64
 //     columns with the 128-byte swizzle or of 16 with the 32-byte one.
+//   * encode_2d: a 2-D map of a row-major matrix of any element type (K2's
+//     packed weights and group scales).
 //
 // cuTensorMapEncodeTiled lives in libcuda, not in the CUDA runtime: it is
 // looked up at run time by cudaGetDriverEntryPoint(ByVersion), so the
@@ -68,6 +71,32 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the same with an L2 cache policy (createpolicy), for a stream read once
+__device__ __forceinline__ void tma_load_2d_hint(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                                 int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// an L2 policy that evicts these lines first
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
 }
 
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
@@ -302,6 +331,23 @@ cudaError_t encode(CUtensorMap* map, const View& x, int D, int S, int H, int B, 
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.p), dims,
                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 2-D map of a row-major (rows, cols) matrix of `type` with `row_bytes`
+// between rows, in boxes of box_cols x box_rows, zero fill out of bounds.
+cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* p, int64_t cols,
+                      int64_t rows, int64_t row_bytes, int box_cols, int box_rows,
+                      CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(row_bytes)};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(p), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

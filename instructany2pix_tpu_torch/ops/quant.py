@@ -16,9 +16,12 @@ JAX ones.
 `qmatmul` is the counterpart of `pallas_qmatmul`: the small-M (decode)
 product x @ dequant(W) with an optional RMSNorm prologue, SwiGLU prologue
 and residual epilogue. On a CUDA tensor it launches the hand-written
-Hopper kernel in `csrc/qmv.cu`; on a CPU tensor it runs `_qmv_reference`,
-the plain PyTorch version of the same function. There is no fallback from
-one to the other: a CUDA call the kernel does not take raises.
+Hopper kernel in `csrc/qmv.cu` once per call (bf16 activations with int4
+weights on the tensor cores, the "mma" path; float32 activations and int8
+weights on the CUDA cores, "fma"); on a CPU tensor it runs
+`_qmv_reference`, the plain PyTorch version of the same function. There is
+no fallback from one to the other: a CUDA call the kernel does not take
+raises.
 `int4_matmul` is the plain large-M (prefill) product, as the JAX package
 leaves it to XLA.
 """
@@ -26,8 +29,9 @@ leaves it to XLA.
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,11 +39,32 @@ from torch import nn
 
 QMV_MAX_M = 16  # rows the decode kernel takes (the router's M <= 16)
 QMV_TILE_N = 128  # output columns per block; N must be a multiple
+QMV_GROUP = 128  # int4 groups that are a multiple of it run on the tensor cores
+QMV_MAX_CLUSTER = 8  # blocks per thread block cluster (the portable limit)
+QMV_STAGE_ROWS = 64  # packed byte rows per stage of the kernel's ring
+QMV_PATHS = ("fma", "mma")  # ia2p_qmv_last_path's codes
 _FMT_CODES = {"int8": 0, "int4": 1, "int4g": 2}
 _ACT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# blocks the split over K aims for: 4 per SM of an H100's 132
-_TARGET_BLOCKS = 4 * 132
-_XS_FLOATS = 8192  # staged activation floats per block (32 KB of shared memory)
+# (cluster, ring) of the fastest plan on an NVIDIA H100 80GB HBM3 (700 W) at
+# the shapes the port runs: the 7B decode projections, int4 group 128, bf16,
+# M = 1 and 16 (`benchmarks_torch/k2_ab.py --plans`, a CUDA graph over weight
+# copies larger than L2). Key: (M, K, N, fmt, dtype, SwiGLU, RMSNorm).
+_PLANS = {
+    (1, 4096, 12288, "int4g", "bfloat16", False, True): (2, 8),
+    (16, 4096, 12288, "int4g", "bfloat16", False, True): (4, 4),
+    (1, 4096, 4096, "int4g", "bfloat16", False, False): (8, 4),
+    (16, 4096, 4096, "int4g", "bfloat16", False, False): (4, 8),
+    (1, 4096, 22016, "int4g", "bfloat16", False, True): (2, 4),
+    (16, 4096, 22016, "int4g", "bfloat16", False, True): (4, 4),
+    (1, 11008, 4096, "int4g", "bfloat16", True, False): (8, 4),
+    (16, 11008, 4096, "int4g", "bfloat16", True, False): (8, 8),
+    (1, 4096, 4096, "int8", "bfloat16", False, False): (8, 4),
+    (16, 4096, 4096, "int8", "bfloat16", False, False): (4, 4),
+}
+# other shapes: the fewest chunks that give the card this many blocks, and
+# a ring of 4 stages (within 5 % of the best ring at every measured shape)
+_FILL_BLOCKS = 176
+_RING = 4  # a multiple of the consumer warps (csrc/qmv.cu)
 
 
 # ------------------------------------------------------------ quantizers
@@ -269,34 +294,71 @@ def _qmv_reference(x2, q, norm_g=None, norm_eps=1e-6, swiglu=False, residual=Non
 # --------------------------------------------- the decode matvec (K2), CUDA
 
 
-def qmv_plan(m: int, k: int, n: int, group: int) -> tuple:
-    """(chunk, ksplit): rows of K per block and the number of K chunks.
-    Chunks are whole scale groups (64 rows without groups) and their
-    staged activations fit `_XS_FLOATS`; the split gives about
-    `_TARGET_BLOCKS` blocks, since N/128 column tiles alone (32 at N=4096)
-    cannot keep 132 SMs streaming."""
-    gran = group if group else 64
-    tiles = n // QMV_TILE_N
-    mt = 1 << (max(m, 1) - 1).bit_length()  # the kernel's row count, a power of two
-    max_chunk = max(gran, (_XS_FLOATS // mt) // gran * gran)
-    want = max(1, -(-_TARGET_BLOCKS // tiles))
-    chunk = -(-k // want)
-    chunk = min(max_chunk, -(-chunk // gran) * gran)
-    return chunk, -(-k // chunk)
+class QmvPlan(NamedTuple):
+    """How K2 cuts one call: `tile` output columns per block, K in chunks
+    of `chunk` rows (`chunk_stages` stages, `stages` in all), one chunk per
+    block of a thread block cluster of `cluster` blocks, streamed through a
+    ring of `ring` stages, on `path` ("mma" or "fma")."""
+
+    tile: int
+    chunk: int
+    chunk_stages: int
+    cluster: int
+    stages: int
+    path: str
+    ring: int
+
+
+def qmv_path(fmt: str, dtype: torch.dtype, group: int = QMV_GROUP) -> str:
+    """The kernel path of a call: the tensor cores for bf16 activations
+    with int4 weights (grouped: a group that is a multiple of 128), the
+    CUDA cores otherwise."""
+    ok = fmt == "int4" or (fmt == "int4g" and group % QMV_GROUP == 0)
+    return "mma" if dtype == torch.bfloat16 and ok else "fma"
+
+
+@functools.lru_cache(maxsize=None)
+def qmv_plan(m: int, k: int, n: int, fmt: str, dtype: torch.dtype = torch.bfloat16,
+             swiglu: bool = False, norm: bool = False, group: int = QMV_GROUP) -> QmvPlan:
+    """The plan of one K2 call, cached per shape, fusion and group. A stage
+    is 64 packed byte rows: 128 k of int4 or 64 k of int8. K is cut into
+    `cluster` chunks of whole stages, one per block of a cluster; N/128
+    tiles alone (32 at N = 4096) cannot keep 132 SMs streaming. The
+    (cluster, ring) measured fastest where `_PLANS` has the shape; else the
+    smallest cluster whose blocks number `_FILL_BLOCKS`, and a ring of
+    `_RING` stages. The kernel stages x' in windows when a
+    chunk's does not fit its shared memory, so every K has a plan."""
+    path = qmv_path(fmt, dtype, group)
+    kstage = QMV_STAGE_ROWS * (1 if fmt == "int8" else 2)
+    stages = -(-k // kstage)
+    key = (m, k, n, fmt, str(dtype).rpartition(".")[2], bool(swiglu), bool(norm))
+    if key in _PLANS and (fmt != "int4g" or group == QMV_GROUP):
+        cluster, ring = _PLANS[key]
+    else:
+        tiles = n // QMV_TILE_N
+        cluster = next((c for c in (1, 2, 4) if tiles * c >= _FILL_BLOCKS), QMV_MAX_CLUSTER)
+        ring = _RING
+    chunk_stages = -(-stages // min(cluster, stages))
+    cluster = -(-stages // chunk_stages)  # every block of the cluster has a stage
+    return QmvPlan(QMV_TILE_N, chunk_stages * kstage, chunk_stages, cluster, stages, path,
+                   min(ring, chunk_stages))
 
 
 def _lib():
     from . import _build
 
     lib = _build.load("qmv")
-    fn = lib.ia2p_qmv
+    fn, path, occ = lib.ia2p_qmv, lib.ia2p_qmv_last_path, lib.ia2p_qmv_max_active_clusters
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-    return fn
+        path.argtypes, path.restype = [], ctypes.c_int
+        occ.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+        occ.restype = ctypes.c_int
+    return fn, path, occ
 
 
 def _check(x2, q, norm_g, residual, swiglu):
@@ -309,8 +371,9 @@ def _check(x2, q, norm_g, residual, swiglu):
     tensors = [("w", w, torch.int8)]
     tensors.append(("gscale", q["gscale"], torch.float32) if "gscale" in q
                    else ("scale", q["scale"], torch.float32))
-    if norm_g is not None:
-        tensors.append(("norm_g", norm_g, torch.float32))
+    if norm_g is not None:  # float32 or bf16 (read as float32, exactly)
+        tensors.append(("norm_g", norm_g,
+                        torch.bfloat16 if norm_g.dtype == torch.bfloat16 else torch.float32))
     if residual is not None:
         tensors.append(("residual", residual, x2.dtype))
     tensors.append(("x", x2, x2.dtype))
@@ -332,8 +395,9 @@ def _check(x2, q, norm_g, residual, swiglu):
         raise ValueError(f"qmatmul: x width {xk} for K={k} (swiglu={swiglu})")
     if "gscale" in q:
         g = _group_of(q)
-        if g % 16 or k % g or q["gscale"].shape != (k // g, n):
-            raise ValueError(f"qmatmul: gscale {tuple(q['gscale'].shape)} for K={k}, N={n}")
+        if g % 2 or k % g or q["gscale"].shape != (k // g, n):
+            raise ValueError(f"qmatmul: gscale {tuple(q['gscale'].shape)} for K={k}, N={n}; "
+                             "the kernel takes even groups that divide K")
     elif q["scale"].shape != (n,):
         raise ValueError(f"qmatmul: scale {tuple(q['scale'].shape)} for N={n}")
     if norm_g is not None and norm_g.shape != (xk,):
@@ -344,9 +408,11 @@ def _check(x2, q, norm_g, residual, swiglu):
 
 
 def qmv_cuda(x2, q, norm_g=None, norm_eps=1e-6, swiglu=False, residual=None):
-    """Launch K2 on PyTorch's current stream for (M, K') rows. Outputs and
-    scratch come from `torch.empty`; the kernel allocates nothing. Raises
-    on input the kernel does not take and on a refused launch. K2 has no
+    """Launch K2 once on PyTorch's current stream for (M, K') rows. The
+    output comes from `torch.empty` and is all it allocates. Raises on
+    input the kernel does not take and on a refused launch (cluster
+    scheduling included). Counts the launch in `launches` and, by the path
+    the kernel reports (QMV_PATHS), in `launches_by_path`. K2 has no
     backward (nor has the JAX kernel), so an input that requires a gradient
     while grad mode is on is refused rather than given an output that
     silently ends the autograd graph."""
@@ -356,34 +422,61 @@ def qmv_cuda(x2, q, norm_g=None, norm_eps=1e-6, swiglu=False, residual=None):
                            "torch.no_grad() or on inputs that need no gradient")
     m, k, n, xk = _check(x2, q, norm_g, residual, swiglu)
     fmt = _fmt(q)
-    group = _group_of(q) if fmt == "int4g" else 0
-    chunk, ksplit = qmv_plan(m, k, n, group)
+    group = _group_of(q) if fmt == "int4g" else QMV_GROUP
+    plan = qmv_plan(m, k, n, fmt, x2.dtype, bool(swiglu), norm_g is not None, group)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    rstd = torch.empty((m,), dtype=torch.float32, device=x2.device) if norm_g is not None else None
-    partial = (torch.empty((ksplit, m, n), dtype=torch.float32, device=x2.device)
-               if ksplit > 1 else None)
     w = q["w_q4"] if "w_q4" in q else q["w_q"]
     scale = q["gscale"] if fmt == "int4g" else q["scale"]
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    fn = _lib()
+    fn, last_path, _ = _lib()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = fn(
             _FMT_CODES[fmt], _ACT_CODES[x2.dtype], x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
-            ptr(norm_g), ptr(residual), out.data_ptr(), ptr(rstd), ptr(partial),
-            m, k, n, xk, group, chunk, ksplit, int(bool(swiglu)), int(norm_g is not None),
-            float(norm_eps), stream,
+            ptr(norm_g), ptr(residual), out.data_ptr(), m, k, n, xk, group, plan.chunk_stages,
+            plan.cluster, plan.ring, int(bool(swiglu)), int(norm_g is not None),
+            int(norm_g is not None and norm_g.dtype == torch.bfloat16), float(norm_eps), stream,
         )
     if rc != 0:
         raise RuntimeError(f"qmatmul: kernel launch failed with CUDA error {rc}")
+    path = QMV_PATHS[last_path()]
     qmv_cuda.launches += 1
+    qmv_cuda.launches_by_path[path] += 1
     return out
 
 
 qmv_cuda.launches = 0  # K2 launches in this process
+qmv_cuda.launches_by_path = dict.fromkeys(QMV_PATHS, 0)  # the same, by path taken
+
+
+def reset_qmv_counts():
+    """Set K2's launch counters to 0."""
+    qmv_cuda.launches = 0
+    qmv_cuda.launches_by_path = dict.fromkeys(QMV_PATHS, 0)
+
+
+def qmv_max_active_clusters(q, m, dtype, swiglu=False, norm=False):
+    """How many of K2's clusters for this call can be resident on the card
+    at once (`cudaOccupancyMaxActiveClusters` at the plan's shared memory
+    and cluster size); 0 means the launch cannot be scheduled."""
+    fmt = _fmt(q)
+    w = q["w_q4"] if "w_q4" in q else q["w_q"]
+    k = w.shape[0] * (2 if "w_q4" in q else 1)
+    n = w.shape[1]
+    group = _group_of(q) if fmt == "int4g" else QMV_GROUP
+    plan = qmv_plan(m, k, n, fmt, dtype, bool(swiglu), bool(norm), group)
+    scale = q["gscale"] if fmt == "int4g" else q["scale"]
+    _, _, occ = _lib()
+    with torch.cuda.device(w.device):
+        r = occ(_FMT_CODES[fmt], _ACT_CODES[dtype], w.data_ptr(), scale.data_ptr(), m, k, n,
+                group, plan.chunk_stages, plan.cluster, plan.ring, int(bool(swiglu)),
+                int(bool(norm)))
+    if r < 0:
+        raise RuntimeError(f"qmatmul: occupancy query failed with CUDA error {-r}")
+    return r
 
 
 def qmatmul(
@@ -405,7 +498,9 @@ def qmatmul(
     if x.device.type == "cpu":
         y = _qmv_reference(x2, q, norm_g, norm_eps, swiglu, r2)
     else:
-        g32 = norm_g.float().contiguous() if norm_g is not None else None
+        if norm_g is not None and norm_g.dtype not in (torch.float32, torch.bfloat16):
+            norm_g = norm_g.float()
+        g = norm_g.contiguous() if norm_g is not None else None
         r2 = r2.to(x2.dtype).contiguous() if r2 is not None else None
-        y = qmv_cuda(x2.contiguous(), q, g32, norm_eps, swiglu, r2)
+        y = qmv_cuda(x2.contiguous(), q, g, norm_eps, swiglu, r2)
     return y.reshape(*lead, n)

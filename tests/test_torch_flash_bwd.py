@@ -409,15 +409,15 @@ def test_build_hash_covers_the_hopper_header_and_flags(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("header,rebuilt", [
-    ("sm90_common.cuh", {"flash_fwd", "flash_bwd"}),
+    ("sm90_common.cuh", {"flash_fwd", "flash_bwd", "qmv"}),
     ("flash_bwd_sm90.cuh", {"flash_bwd"}),
     ("flash_fwd_sm90.cuh", {"flash_fwd"}),
 ])
 def test_build_hash_covers_the_shared_hopper_headers(tmp_path, monkeypatch, header, rebuilt):
-    """K1's and K4's wgmma kernels share csrc/sm90_common.cuh (TMA, barriers,
-    descriptors, the Wgmma products, tensor maps): editing it rebuilds both
-    libraries, editing either kernel's own header rebuilds that library
-    only, and K2's is never touched."""
+    """K1's and K4's wgmma kernels and K2 share csrc/sm90_common.cuh (TMA,
+    barriers, descriptors, the Wgmma products, tensor maps): editing it
+    rebuilds all three libraries, and editing either flash kernel's own
+    header rebuilds that library only."""
     for name in CSRC_FILES:
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
