@@ -28,11 +28,21 @@ printed only when every phase passed):
      of the calls, and the eager time with the host's launch cost), the
      plain version, and F.linear on bf16 weights dequantized ahead of time
      (the yardstick, never called by the port);
-  4. the full width: PipelineConfig() in bf16 with random weights from a
-     seed: Vicuna-7B int4 group-128 with fused projections (int8 lm_head),
-     ImageBind-huge vision and audio, the GPT-2 prior and its CLIP-ViT-H
-     text tower, SDXL base with IP, the refiner, the VAE, CLIP-L and bigG.
-     Two text2img requests (plain, and IP) with exact K1 counts; one CFG
+  4. the full width: a checkpoint tree in the reference's layout written
+     to a temporary directory from random port modules drawn from a seed
+     (fp16 LLM shards and SDXL directories; float32 prior, ImageBind, SAM
+     and GroundingDINO; about 33 GB, removed at exit), then
+     `InstructAny2PixPipeline(PipelineConfig(), ckpt=tree, llm_quant_bits=4)`
+     booted from it in bf16: Vicuna-7B int4 group-128 with fused
+     projections (int8 lm_head), ImageBind-huge vision and audio, the GPT-2
+     prior and its CLIP-ViT-H text tower, SDXL base with IP, the refiner,
+     the VAE, CLIP-L and bigG, SAM ViT-H (bf16) and GroundingDINO Swin-T.
+     Bytes and seconds written, boot seconds (read, map and cast,
+     quantize), boot peak device memory and host peak RSS; every loaded
+     tensor that is not quantized against the checksum of what was
+     written, the int4 bytes and scales of the first and last decoder
+     layers and the int8 vocab head against the plain quantizer on the
+     written fp16 weights. Two text2img requests (plain, and IP) with exact K1 counts; one CFG
      UNet step timed and profiled; then the edit: `forward_llm` on a
      written PNG and WAV (K2 launched exactly 128 times per decode step,
      all on its mma path, K1 by the ImageBind trunks), the prefill and per-token decode times
@@ -50,12 +60,13 @@ on the chunks of a fused qkv projection that SAM passes (TOL), each on
 the wgmma path, timed beside F.scaled_dot_product_attention with the
 bias as a (B, H, N, N) mask (the yardstick); float32 must be refused.
 Phase 4 then adds the full-width subject consistency: `__call__` with
-`subject_strength` through a random SAM ViT-H segmentor in bf16 (K3
+`subject_strength` through the SAM ViT-H segmentor loaded from the tree (K3
 launched exactly once per encoder block, 32 times per segmentor call:
 4 global and 28 window blocks, all on the wgmma path; a non-empty mask,
 a finite 1024x1024 image, seconds per stage, peak memory), the SAM
 encoder timed and split into its global and window attentions, and the
-random GroundingDINO Swin-T grounder (float32) on the edited image.
+GroundingDINO Swin-T grounder loaded from the tree (float32) on the
+edited image.
 
 Training (slice 4): after K3, K1 with a per-row key count (`kv_len`)
 against the router's plain masked path, and K4 (the flash backward)
@@ -1388,12 +1399,357 @@ def _full_config():
                                inpaint_unet=PipelineConfig().unet)
 
 
+TREE_LAYERS_PER_SHARD = 4  # decoder layers per LLM shard file: 8 shards of about 1.7 GB
+TREE_FREE_BYTES = 36 * 2**30  # the written tree is about 33 GB
+TREE_FP16 = ("llm", "unet", "ip_adapter", "refiner", "vae", "text1", "text2")  # as published
+CHECKSUM_CHUNK = 1 << 24
+
+
+def checksum(t):
+    """A position-weighted sum of the bit patterns of `t`, on its device
+    (int64 arithmetic, wrapping): equal tensors of one dtype and shape give
+    equal sums, and a changed, moved or missing element changes it."""
+    import torch
+
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    flat = t.detach().contiguous().reshape(-1).view(bits)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for start in range(0, flat.numel(), CHECKSUM_CHUNK):
+        part = flat[start:start + CHECKSUM_CHUNK].long()
+        w = torch.arange(start, start + part.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+        total += (part * w).sum()
+    return [str(t.dtype), list(t.shape), int(total)]
+
+
+def _tree_dir():
+    """A new directory for the tree, under the temporary directory or,
+    where that is short of space, under the checkout's (git-ignored)
+    build/; None when neither has TREE_FREE_BYTES free."""
+    import os
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for base in (tempfile.gettempdir(), os.path.join(here, "build")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        log(f"tree: {free / 2**30:.1f} GiB free under {base}")
+        if free >= TREE_FREE_BYTES:
+            return tempfile.mkdtemp(prefix="ia2p-ckpts-", dir=base)
+    return None
+
+
+def write_reference_tree(root, cfg, policy_dtype, seed=0, device="cuda"):
+    """Write a full-width checkpoint tree in the reference's layout under
+    `root`: random port modules drawn on the card with the port's own
+    initializers (the LLM one child at a time, never quantized), renamed to
+    the reference's keys through each model's KeyMap read backward, cast
+    to the published dtype (fp16 for the LLM shards and the SDXL
+    directories, float32 for the prior, ImageBind, SAM and GroundingDINO)
+    and saved with torch.save. Returns bytes and seconds per component and,
+    per component, the checksum of each port parameter as the loader must
+    produce it: the written tensor mapped forward and cast to the dtype it
+    is loaded in (`policy_dtype`; SAM bf16, GroundingDINO float32)."""
+    import copy
+    import math
+    import os
+
+    import torch
+
+    from instructany2pix_tpu_torch.diffusion import ip_adapter as ipa
+    from instructany2pix_tpu_torch.grounding import gdino as gdino_lib
+    from instructany2pix_tpu_torch.grounding import sam as sam_lib
+    from instructany2pix_tpu_torch.llm import multimodal as mm_lib
+    from instructany2pix_tpu_torch.models import clip as clip_lib
+    from instructany2pix_tpu_torch.models import imagebind as imagebind_lib
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.models import unet_convert
+    from instructany2pix_tpu_torch.models import vae as vae_lib
+    from instructany2pix_tpu_torch.prior import model as prior_lib
+
+    dev = torch.device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {"bytes": {}, "seconds": {}, "checksums": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def draw(make, init=L.init_):
+        with torch.device("meta"):
+            m = make()
+        return init(L.materialize(m, dev, torch.float32), gen)
+
+    def params(m, prefix=""):
+        return {prefix + n: p.detach() for n, p in m.named_parameters()}
+
+    def save(comp, path, km, named, file_dtype, load_dtype):
+        """Write `named` (port tensors) under the reference keys of `km`;
+        record the checksums the loader must reproduce."""
+        ref = {k: v.to(file_dtype) for k, v in km.to_ref(named).items()}
+        sums = out["checksums"].setdefault(comp, {})
+        for n, t in km.to_port(ref).items():
+            sums[n] = checksum(t.to(load_dtype))
+        host = {k: v.contiguous().cpu() for k, v in ref.items()}
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(host, path)
+        out["bytes"][comp] = out["bytes"].get(comp, 0) + sum(
+            v.numel() * v.element_size() for v in host.values())
+
+    def timed(comp, fn):
+        t0 = time.time()
+        fn()
+        sync()
+        out["seconds"][comp] = out["seconds"].get(comp, 0.0) + time.time() - t0
+
+    f16, f32, pol = torch.float16, torch.float32, policy_dtype
+    sdxl = os.path.join(root, "sdxl-base")
+
+    def llm():
+        """Shard k holds decoder layers [4(k-1), 4k): the embeddings go with
+        the first, the final norm, vocab head and projector/predictor heads
+        with the last."""
+        km = mm_lib.keymap()
+        with torch.device("meta"):
+            m = mm_lib.Any2PixLM(cfg.llm)
+        n_layers = cfg.llm.llama.num_layers
+        n_shards = math.ceil(n_layers / TREE_LAYERS_PER_SHARD)
+        shard, k = {}, 1
+        parts = [(f"llama.{n}.", c) for n, c in m.llama.named_children()]
+        parts += [(f"{n}.", c) for n, c in m.named_children() if n != "llama"]
+        for prefix, child in parts:
+            # a copy of the meta child, so a written shard's layers are freed
+            shard.update(params(draw(lambda c=child: copy.deepcopy(c)), prefix))
+            last_of_shard = (prefix.startswith("llama.layer_")
+                             and int(prefix.split("_")[1][:-1]) % TREE_LAYERS_PER_SHARD
+                             == TREE_LAYERS_PER_SHARD - 1 and k < n_shards)
+            if last_of_shard:
+                save("llm", os.path.join(root, "llm-retrained",
+                                         f"pytorch_model-{k:05d}-of-{n_shards:05d}.bin"),
+                     km, shard, f16, pol)
+                shard, k = {}, k + 1
+        save("llm", os.path.join(root, "llm-retrained", f"pytorch_model-{k:05d}-of-{n_shards:05d}.bin"),
+             km, shard, f16, pol)
+
+    def unet_and_ip():
+        unet = draw(lambda: unet_lib.UNet(cfg.unet))
+        proj = draw(lambda: ipa.ImageProj(cfg.image_proj))
+        named = params(unet)
+        ip = {n: t for n, t in named.items() if "_ip." in n}
+        save("unet", os.path.join(sdxl, "unet", "diffusion_pytorch_model.bin"),
+             unet_convert.unet_keymap(), {n: t for n, t in named.items() if n not in ip}, f16, pol)
+        km = (ipa.ip_attn_keymap(unet_convert.cross_attn_paths(cfg.unet))
+              + ipa.image_proj_keymap().prefixed(port="image_proj."))
+        save("ip_adapter", os.path.join(root, "sdxl", "ip_adapter_global_local_2_view.bin"), km,
+             {**ip, **params(proj, "image_proj.")}, f16, pol)
+
+    def imagebind():
+        from instructany2pix_tpu_torch.models.imagebind import audio_patches
+
+        # ImageBind-huge's layout: the audio trunk has bias_k/bias_v, a
+        # LayerNorm in its stem and none before its blocks
+        v = draw(lambda: imagebind_lib.ViT(cfg.imagebind_vision))
+        a = draw(lambda: imagebind_lib.ViT(cfg.imagebind_audio,
+                                           num_patches=audio_patches(cfg.imagebind_audio),
+                                           bias_kv=True, patch_norm=True, pre_ln=False))
+        save("imagebind", os.path.join(root, "imagebind_huge.pth"), imagebind_lib.file_keymap(),
+             {**params(v, "vision."), **params(a, "audio.")}, f32, pol)
+
+    def grounding():
+        scfg = cfg.sam or sam_lib.SAMConfig.vit_h()
+        gcfg = cfg.gdino or gdino_lib.GDinoConfig.swint()
+        sam = draw(lambda: sam_lib.SAM(scfg), sam_lib.init_)
+        save("sam", os.path.join(root, "gdino", "sam_vit_h_4b8939.pth"), sam_lib.keymap(scfg),
+             params(sam), f32, torch.bfloat16)
+        del sam
+        gd = draw(lambda: gdino_lib.GDino(gcfg), lambda m, g: gdino_lib.init_(m, gcfg, g))
+        save("gdino", os.path.join(root, "gdino", "gdino.pth"), gdino_lib.keymap(gcfg), params(gd),
+             f32, f32)
+        words = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                   "[MASK]", ".", "a", "cat", "dog"]
+        with open(os.path.join(root, "gdino", "vocab.txt"), "w") as f:
+            f.write("\n".join(words) + "\n")
+
+    steps = [
+        ("llm", llm),
+        ("prior", lambda: save("prior", os.path.join(root, "prior", "model.bin"),
+                               prior_lib.keymap(),
+                               params(draw(lambda: prior_lib.Prior(cfg.prior, output_proj=True))),
+                               f32, pol)),
+        ("unet", unet_and_ip),
+        ("refiner", lambda: save("refiner", os.path.join(root, "sdxl-refiner", "unet",
+                                                         "diffusion_pytorch_model.bin"),
+                                 unet_convert.unet_keymap(),
+                                 params(draw(lambda: unet_lib.UNet(cfg.refiner))), f16, pol)),
+        ("vae", lambda: save("vae", os.path.join(sdxl, "vae", "diffusion_pytorch_model.bin"),
+                             unet_convert.vae_keymap(),
+                             params(draw(lambda: vae_lib.VAE(cfg.vae))), f16, pol)),
+    ]
+    for comp, d, tcfg in (("text1", os.path.join(sdxl, "text_encoder"), cfg.text1),
+                          ("text2", os.path.join(sdxl, "text_encoder_2"), cfg.text2),
+                          ("prior_text", os.path.join(root, "clip-vit-h"), cfg.prior_text)):
+        dt = f16 if comp in TREE_FP16 else f32
+        steps.append((comp, lambda comp=comp, d=d, tcfg=tcfg, dt=dt: save(
+            comp, os.path.join(d, "pytorch_model.bin"), clip_lib.text_keymap(),
+            params(draw(lambda: clip_lib.CLIPText(tcfg))), dt, pol)))
+    steps += [("imagebind", imagebind), ("grounding", grounding)]
+    for comp, fn in steps:
+        timed(comp, fn)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_boot(pipe, written, tree, failures):
+    """Every loaded parameter that is not quantized against the checksum of
+    what was written; the int4 bytes and scales of the first and last
+    decoder layers, and the int8 vocab head, against the port's plain
+    quantizer applied to the fp16 weights read back from the shard files."""
+    import glob
+    import os
+
+    import torch
+
+    from instructany2pix_tpu_torch.core import checkpoint as ckpt_lib
+    from instructany2pix_tpu_torch.ops import quant as Q
+
+    loaded = {name: dict(m.named_parameters()) for name, m in pipe.models.items()}
+    loaded["imagebind"] = {**{f"vision.{n}": p for n, p in loaded.pop("imagebind_vision").items()},
+                           **{f"audio.{n}": p for n, p in loaded.pop("imagebind_audio").items()}}
+    ip = {n: p for n, p in loaded["unet"].items() if "_ip." in n}
+    loaded["ip_adapter"] = {**ip, **{f"image_proj.{n}": p
+                                     for n, p in loaded.pop("image_proj").items()}}
+    loaded["unet"] = {n: p for n, p in loaded["unet"].items() if n not in ip}
+    loaded["sam"] = dict(pipe.segmentor.params.named_parameters())
+    loaded["gdino"] = dict(pipe.grounder.params.named_parameters())
+    out = {"tensors": 0, "mismatched": [], "unchecked": []}
+    for comp, sums in written["checksums"].items():
+        have = loaded.get(comp, {})
+        for name, want in sums.items():
+            if name not in have:
+                if not (comp == "llm" and _quantized(name)):
+                    out["unchecked"].append(f"{comp}:{name}")
+                continue
+            out["tensors"] += 1
+            if checksum(have[name]) != want:
+                out["mismatched"].append(f"{comp}:{name}")
+        for name in have:
+            if name not in sums:
+                out["unchecked"].append(f"{comp}:{name} (loaded, never written)")
+
+    # the quantizer check reads the written fp16 weights back
+    lm = pipe.models["llm"].llama
+    n_layers = pipe.cfg.llm.llama.num_layers
+    wanted = {f"model.layers.{i}.{p}.weight": (i, p) for i in (0, n_layers - 1)
+              for p in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                        "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")}
+    wanted["lm_head.weight"] = (None, "lm_head")
+    found = {}
+    dev, dtype = pipe.device, pipe.policy.param_dtype
+    for f in sorted(glob.glob(os.path.join(tree, "llm-retrained", "*.bin"))):
+        sd = ckpt_lib.load_torch_state_dict(f)
+        found.update({k: sd[k].to(dev, dtype) for k in wanted if k in sd})
+        del sd
+    fused = {"self_attn.q_proj": ("qkv", 0), "self_attn.k_proj": ("qkv", 1),
+             "self_attn.v_proj": ("qkv", 2), "self_attn.o_proj": ("o", 0),
+             "mlp.gate_proj": ("gate_up", 0), "mlp.up_proj": ("gate_up", 1),
+             "mlp.down_proj": ("down", 0)}
+    out["quantized_checked"] = []
+    for key, (i, proj) in wanted.items():
+        w = found.get(key)
+        if w is None:
+            out["mismatched"].append(f"llm:{key} (not in the shards)")
+            continue
+        m = torch.nn.ModuleDict({"w": torch.nn.Linear(w.shape[1], w.shape[0], bias=False,
+                                                      device=dev, dtype=dtype)})
+        m["w"].weight.data.copy_(w)
+        Q.quantize_tree(m, lambda _n: True, bits=4)
+        want = m["w"].q
+        if i is None:
+            have, part = lm.lm_head.q, 0
+        else:
+            attr, part = fused[proj]
+            have = getattr(lm, f"layer_{i}").__getattr__(attr).q
+        ok = set(have) == set(want)
+        for b, wt in want.items():
+            if not ok:
+                break
+            dim = 0 if b == "scale" else 1  # packed bytes and group scales: columns on axis 1
+            n = wt.shape[dim]
+            ok = torch.equal(have[b].narrow(dim, part * n, n), wt)
+        out["quantized_checked"].append(key)
+        if not ok:
+            out["mismatched"].append(f"llm:{key} (quantized)")
+    if out["mismatched"] or out["unchecked"] or not out["tensors"]:
+        failures.append(f"boot checks: {len(out['mismatched'])} mismatched, e.g. "
+                        f"{out['mismatched'][:5]}; {len(out['unchecked'])} unchecked, e.g. "
+                        f"{out['unchecked'][:5]}; {out['tensors']} checked")
+    return out
+
+
+def _quantized(name):
+    import re
+
+    return bool(re.fullmatch(r"llama\.(layer_\d+\.(q|k|v|o|gate|up|down)|lm_head)\.weight", name))
+
+
+class PeakRSS:
+    """Host peak resident memory over a block, from /proc/self/status
+    sampled every 5 ms by a thread (VmRSS, which counts touched pages of
+    memory-mapped files)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = self._rss(), threading.Event()
+
+        def run():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, self._rss())
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+
 def _weight_bytes(module):
     return sum(t.numel() * t.element_size()
                for t in list(module.parameters()) + list(module.buffers()))
 
 
 def phase_full_width(failures):
+    """Phase 4: write the full-width tree, boot the pipeline from it, check
+    the boot, then drive text2img, the edit and subject consistency."""
+    import atexit
+    import shutil
+
+    cfg = _full_config()
+    root = _tree_dir()
+    if root is None:
+        raise RuntimeError(f"the full-width checkpoint tree needs {TREE_FREE_BYTES / 2**30:.0f} GiB "
+                           "free under the temporary directory or the checkout's build/")
+    atexit.register(shutil.rmtree, root, True)
+    try:
+        return _full_width_from(root, cfg, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _full_width_from(root, cfg, failures):
     import numpy as np
     import torch
 
@@ -1403,17 +1759,46 @@ def phase_full_width(failures):
     from instructany2pix_tpu_torch.ops import quant as Q
     from instructany2pix_tpu_torch.pipeline import InstructAny2PixPipeline
 
-    cfg = _full_config()
-    torch.cuda.reset_peak_memory_stats()
+    card = card_line()
     t0 = time.time()
-    pipe = InstructAny2PixPipeline(cfg, seed=0, llm_quant_bits=4)
-    torch.cuda.synchronize()
+    written = write_reference_tree(root, cfg, torch.bfloat16)
+    tree = {"root_bytes": sum(written["bytes"].values()), "write_seconds": time.time() - t0,
+            "bytes": written["bytes"], "component_seconds": written["seconds"], "card": card}
+    log(f"tree: wrote {tree['root_bytes'] / 1e9:.2f} GB in {tree['write_seconds']:.1f} s; GB "
+        + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in written["bytes"].items())
+        + "; seconds to draw and write " + ", ".join(f"{k} {v:.1f}"
+                                                    for k, v in written["seconds"].items())
+        + f" [{card}]")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = PeakRSS._rss()
+    with PeakRSS() as rss:
+        t0 = time.time()
+        pipe = InstructAny2PixPipeline(cfg, ckpt=root, llm_quant_bits=4)
+        torch.cuda.synchronize()
+        boot_s = time.time() - t0
     sizes = {name: _weight_bytes(m) / 2**30 for name, m in pipe.models.items()}
-    out = {"build_seconds": time.time() - t0, "weights_gib": sizes,
-           "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log(f"full width: built in {out['build_seconds']:.1f} s, weights {sum(sizes.values()):.2f} GiB ("
+    boot = {"seconds": boot_s, **{f"{k}_seconds": v for k, v in pipe.boot_times.items()},
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "host_peak_rss_gib": rss.peak / 2**30, "host_rss_before_gib": rss_before / 2**30,
+            "card": card}
+    out = {"tree": tree, "boot": boot, "build_seconds": boot_s, "weights_gib": sizes,
+           "build_peak_gib": boot["peak_device_gib"]}
+    log(f"boot from the tree: {boot_s:.1f} s (read {boot['read_seconds']:.1f}, map and cast "
+        f"{boot['cast_seconds']:.1f}, quantize {boot['quantize_seconds']:.1f}), peak device "
+        f"{boot['peak_device_gib']:.2f} GiB, host peak RSS {boot['host_peak_rss_gib']:.2f} GiB "
+        f"(before the boot {boot['host_rss_before_gib']:.2f}); "
+        f"weights {sum(sizes.values()):.2f} GiB ("
         + ", ".join(f"{k} {v:.2f}" for k, v in sizes.items())
-        + f"), build peak {out['build_peak_gib']:.2f} GiB")
+        + f"; SAM {_weight_bytes(pipe.segmentor.params) / 2**30:.2f}, GroundingDINO "
+        f"{_weight_bytes(pipe.grounder.params) / 2**30:.2f}) [{card}]")
+    t0 = time.time()
+    out["boot_checks"] = check_boot(pipe, written, root, failures)
+    chk = out["boot_checks"]
+    log(f"boot checks: {chk['tensors']} tensors against their written checksums, "
+        f"{len(chk['quantized_checked'])} quantized weights against the plain quantizer, "
+        f"{len(chk['mismatched'])} mismatched, {len(chk['unchecked'])} unchecked "
+        f"({time.time() - t0:.1f} s)")
 
     # record whether the decoded float image was finite (the entry points return uint8)
     finite = []
@@ -1780,11 +2165,11 @@ def sam_encode_split(sam_lib, encoder, x, cfg, reps=3):
 
 def phase_subject(pipe, failures, finite):
     """Subject consistency at full width: `__call__` with `subject_strength`
-    on a seeded LLM cache naming one image subject, through a random SAM
-    ViT-H segmentor in bf16 and the whole-image grounder (so a box exists
-    with random weights), with the launch counts set to 0 just before and
-    read just after; then the random GroundingDINO Swin-T grounder (float32)
-    on the edited image."""
+    on a seeded LLM cache naming one image subject, through the SAM ViT-H
+    segmentor the pipeline loaded from the tree (bf16) and the whole-image
+    grounder (random weights box nothing), with the launch counts set to 0
+    just before and read just after; then the GroundingDINO Swin-T grounder
+    loaded from the tree (float32, wordpiece captions) on the edited image."""
     import tempfile
 
     import numpy as np
@@ -1793,26 +2178,18 @@ def phase_subject(pipe, failures, finite):
     from instructany2pix_tpu_torch.grounding import gdino as gdino_lib
     from instructany2pix_tpu_torch.grounding import lib as grounding_lib
     from instructany2pix_tpu_torch.grounding import sam as sam_lib
-    from instructany2pix_tpu_torch.models import layers as L
     from instructany2pix_tpu_torch.models import unet as unet_lib
     from instructany2pix_tpu_torch.ops import flash_attention as fa
     from instructany2pix_tpu_torch.ops import quant as Q
 
     cfg = pipe.cfg
     out = {}
-    t0 = time.time()
-    gen = torch.Generator("cuda").manual_seed(5)
     scfg, gcfg = sam_lib.SAMConfig.vit_h(), gdino_lib.GDinoConfig.swint()
-    with torch.device("meta"):
-        sam, gd = sam_lib.SAM(scfg), gdino_lib.GDino(gcfg)
-    sam = sam_lib.init_(L.materialize(sam, torch.device("cuda"), torch.bfloat16), gen).eval()
-    gd = gdino_lib.init_(L.materialize(gd, torch.device("cuda"), torch.float32), gcfg, gen).eval()
-    sam.requires_grad_(False)
-    gd.requires_grad_(False)
-    segment = sam_lib.make_segmentor(sam, scfg)
-    torch.cuda.synchronize()
-    out.update({"build_seconds": time.time() - t0, "sam_gib": _weight_bytes(sam) / 2**30,
-                "gdino_gib": _weight_bytes(gd) / 2**30})
+    segment, grounder = pipe.segmentor, pipe.grounder  # loaded from the tree's gdino/
+    sam, gd = segment.params, grounder.params
+    if next(sam.parameters()).dtype != torch.bfloat16:
+        failures.append(f"SAM from the tree is {next(sam.parameters()).dtype}, not bf16")
+    out.update({"sam_gib": _weight_bytes(sam) / 2**30, "gdino_gib": _weight_bytes(gd) / 2**30})
     masks = []
 
     def segmentor(image, box):
@@ -1884,13 +2261,12 @@ def phase_subject(pipe, failures, finite):
         f"each: every encoder block); K1 launches {k1} "
         f"(expected {k1_expected}); mask fraction {out['mask_fraction']}; image {edited.shape} "
         f"finite {all_finite}; peak {out['peak_gib']:.2f} GiB; SAM ViT-H {out['sam_gib']:.2f} GiB "
-        f"bf16, GroundingDINO {out['gdino_gib']:.2f} GiB f32, built in {out['build_seconds']:.1f} s")
+        f"bf16, GroundingDINO {out['gdino_gib']:.2f} GiB f32, both loaded from the tree")
 
     with torch.inference_mode():
         x = torch.randn((1, scfg.img_size, scfg.img_size, 3), device="cuda").bfloat16()
         out["sam_encode_ms"] = time_ms(lambda: sam_lib.encoder_apply(sam.encoder, x, scfg), 3, 1)
         out["sam_encode_split"] = sam_encode_split(sam_lib, sam.encoder, x, scfg)
-        grounder = gdino_lib.make_grounder(gd, gcfg)
         grounder(edited, "cat")
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1922,7 +2298,6 @@ def phase_subject(pipe, failures, finite):
         f"{tuple(rl.shape)}, finite {finite_ok}, {len(boxes)} boxes kept at 0.35/0.25")
     pipe.segmentor, pipe.grounder = saved
     del sam, gd, segment, grounder
-    torch.cuda.empty_cache()
     return out
 
 

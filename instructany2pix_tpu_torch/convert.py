@@ -161,16 +161,20 @@ def image_proj(tree, cfg: ipa.ImageProjConfig, device="cpu", dtype=torch.float32
 
 
 def prior(tree, cfg: prior_lib.PriorConfig, device="cpu", dtype=torch.float32) -> prior_lib.Prior:
-    return build(_meta(prior_lib.Prior, cfg), tree, device, dtype)
+    """`output_proj` follows the tree (a checkpoint may carry one at any width)."""
+    with torch.device("meta"):
+        m = prior_lib.Prior(cfg, output_proj="output_proj" in tree)
+    return build(m, tree, device, dtype)
 
 
 def imagebind(tree, cfg: imagebind_lib.ViTConfig, device="cpu", dtype=torch.float32) -> imagebind_lib.ViT:
-    """The token count, `bias_k`/`bias_v` and the audio stem's LayerNorm
-    follow the tree."""
+    """The token count, `bias_k`/`bias_v`, the audio stem's LayerNorm and
+    the pre-trunk LayerNorm follow the tree."""
     with torch.device("meta"):
         m = imagebind_lib.ViT(
             cfg, num_patches=np.shape(tree["pos_embed"])[1] - 1,
             bias_kv="bias_k" in tree.get("block_0", {}), patch_norm="patch_norm" in tree,
+            pre_ln="pre_ln" in tree,
         )
     return build(m, tree, device, dtype)
 

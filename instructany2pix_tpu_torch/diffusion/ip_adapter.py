@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..core.checkpoint import KeyMap, Rule
 from ..models import layers as L
 
 
@@ -94,3 +95,27 @@ def get_image_embeds(
     cond = apply(params, stacked, cfg, mode=mode, scales=(scale_g, scale_l))
     uncond = apply(params, torch.zeros_like(stacked), cfg, mode=mode)
     return cond, uncond
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def image_proj_keymap() -> KeyMap:
+    """The `image_proj.*` half of the IP-Adapter checkpoint ↔ `ImageProj`."""
+    return KeyMap([Rule("image_proj.proj.weight", "proj.weight"),
+                   Rule("image_proj.proj.bias", "proj.bias"),
+                   Rule("image_proj.norm.weight", "norm.weight"),
+                   Rule("image_proj.norm.bias", "norm.bias"),
+                   Rule("image_proj.raw_embed", "raw_embed")])
+
+
+def ip_attn_keymap(attn_paths) -> KeyMap:
+    """The `ip_adapter.*` half ↔ the UNet's `to_k_ip`/`to_v_ip`: processor
+    2i + 1 of diffusers' `attn_processors` order holds the i-th
+    cross-attention of `attn_paths` (the even ones are self-attention
+    processors without weights)."""
+    rules = []
+    for i, path in enumerate(attn_paths):
+        for proj in ("to_k_ip", "to_v_ip"):
+            rules.append(Rule(f"ip_adapter.{2 * i + 1}.{proj}.weight", f"{path}.{proj}.weight"))
+    return KeyMap(rules)

@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..core.checkpoint import KeyMap, Rule
 from ..models import layers as L
 from ..ops.attention import dot_product_attention
 
@@ -97,3 +98,23 @@ def forward(
         h = L.linear(p.fc2, L.gelu(L.linear(p.fc1, x)))
         x = L.layer_norm(p.out_ln, x + h, cfg.ln_eps)
     return x
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def hf_keymap() -> KeyMap:
+    """HF `BertModel` keys ↔ `Bert` (the JAX `convert_from_hf` rules)."""
+    lay = "encoder.layer.{i}"
+    rules = [Rule(f"embeddings.{a}.weight", f"{a}.weight")
+             for a in ("word_embeddings", "position_embeddings", "token_type_embeddings")]
+    rules += [Rule(f"embeddings.LayerNorm.{leaf}", f"embed_ln.{leaf}") for leaf in ("weight", "bias")]
+    for ref, port in (("attention.self.query", "q"), ("attention.self.key", "k"),
+                      ("attention.self.value", "v"), ("attention.output.dense", "o"),
+                      ("attention.output.LayerNorm", "attn_ln"), ("intermediate.dense", "fc1"),
+                      ("output.dense", "fc2"), ("output.LayerNorm", "out_ln")):
+        for leaf in ("weight", "bias"):
+            rules.append(Rule(f"{lay}.{ref}.{leaf}", "layer_{i}." + f"{port}.{leaf}"))
+    ignore = [(r"pooler\..*", "the pooled output, which grounding does not read"),
+              (r"embeddings\.(position_ids|token_type_ids)", "index buffers")]
+    return KeyMap(rules, ignore)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import List, Tuple
 
 import numpy as np
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.checkpoint import KeyMap, Rule
 from ..models import layers as L
 from ..ops.attention import dot_product_attention
 from . import bert as bert_lib
@@ -453,7 +455,8 @@ def simple_tokenize(caption: str, vocab_size: int) -> Tuple[np.ndarray, List[str
 def make_grounder(params: GDino, cfg: GDinoConfig, tokenizer=None):
     """→ grounder(image, caption, box_threshold, text_threshold) → (boxes
     (N, 4) cxcywh, best probabilities (N,), phrases), as
-    `grounding.lib.subject_consistency` takes it."""
+    `grounding.lib.subject_consistency` takes it; the module is kept as
+    `grounder.params`."""
     dev = params.level_embed.device
 
     @torch.inference_mode()
@@ -478,4 +481,75 @@ def make_grounder(params: GDino, cfg: GDinoConfig, tokenizer=None):
             phrases.append(" ".join(words))
         return boxes[0].float().cpu().numpy()[keep], best[keep], phrases
 
+    grounder.params = params
     return grounder
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def _key_wb(ref: str, port: str):
+    return [Rule(f"{ref}.{leaf}", f"{port}.{leaf}") for leaf in ("weight", "bias")]
+
+
+def _key_mha(ref: str, port: str):
+    """nn.MultiheadAttention's packed in_proj, split into q, k and v."""
+    return [Rule(f"{ref}.in_proj_weight", tuple(f"{port}.{p}.weight" for p in "qkv")),
+            Rule(f"{ref}.in_proj_bias", tuple(f"{port}.{p}.bias" for p in "qkv"))] + \
+        _key_wb(f"{ref}.out_proj", f"{port}.o")
+
+
+def _key_deform(ref: str, port: str):
+    return [r for a, b in (("sampling_offsets", "sampling_offsets"),
+                           ("attention_weights", "attn_weights"), ("value_proj", "value_proj"),
+                           ("output_proj", "out_proj")) for r in _key_wb(f"{ref}.{a}", f"{port}.{b}")]
+
+
+def keymap(cfg: GDinoConfig) -> KeyMap:
+    """Official `groundingdino_swint_ogc.pth` keys ↔ `GDino` (the JAX
+    `convert_from_torch` mapping). A `module.` prefix is dropped. In the
+    decoder the official norms are named out of op order: norm2 follows the
+    self-attention (ln1), catext_norm the text cross-attention (ln2), norm1
+    the deformable attention (ln3) and norm3 the FFN (ffn.ln)."""
+    n = len(cfg.swin.out_stages)
+    rules = _key_wb("feat_map", "text_proj") + [Rule("transformer.level_embed", "level_embed"),
+                                            Rule("transformer.tgt_embed.weight", "tgt_embed")]
+    for i in range(n):
+        rules += _key_wb(f"input_proj.{i}.0", f"input_proj_{i}.conv") + \
+            _key_wb(f"input_proj.{i}.1", f"input_proj_{i}.gn")
+    rules += _key_wb(f"input_proj.{n}.0", "input_proj_extra.conv") + \
+        _key_wb(f"input_proj.{n}.1", "input_proj_extra.gn")
+    e, t, f = ("transformer.encoder.layers.{i}", "transformer.encoder.text_layers.{i}",
+               "transformer.encoder.fusion_layers.{i}")
+    rules += _key_deform(f"{e}.self_attn", "enc_{i}.img_deform") + _key_wb(f"{e}.norm1", "enc_{i}.img_ln")
+    rules += _key_wb(f"{e}.linear1", "enc_{i}.img_ffn.fc1") + _key_wb(f"{e}.linear2", "enc_{i}.img_ffn.fc2")
+    rules += _key_wb(f"{e}.norm2", "enc_{i}.img_ffn.ln")
+    rules += _key_mha(f"{t}.self_attn", "enc_{i}.txt_attn") + _key_wb(f"{t}.norm1", "enc_{i}.txt_ln")
+    rules += _key_wb(f"{t}.linear1", "enc_{i}.txt_ffn.fc1") + _key_wb(f"{t}.linear2", "enc_{i}.txt_ffn.fc2")
+    rules += _key_wb(f"{t}.norm2", "enc_{i}.txt_ffn.ln")
+    rules += _key_wb(f"{f}.layer_norm_v", "enc_{i}.fusion.ln_v") + \
+        _key_wb(f"{f}.layer_norm_l", "enc_{i}.fusion.ln_l")
+    for name in ("v_proj", "l_proj", "values_v_proj", "values_l_proj", "out_v_proj", "out_l_proj"):
+        rules += _key_wb(f"{f}.attn.{name}", "enc_{i}.fusion." + name)
+    rules += [Rule(f"{f}.gamma_v", "enc_{i}.fusion.gamma_v"),
+              Rule(f"{f}.gamma_l", "enc_{i}.fusion.gamma_l")]
+    d = "transformer.decoder.layers.{i}"
+    rules += _key_mha(f"{d}.self_attn", "dec_{i}.self_attn") + _key_wb(f"{d}.norm2", "dec_{i}.ln1")
+    rules += _key_mha(f"{d}.ca_text", "dec_{i}.txt_cross") + _key_wb(f"{d}.catext_norm", "dec_{i}.ln2")
+    rules += _key_deform(f"{d}.cross_attn", "dec_{i}.img_deform") + _key_wb(f"{d}.norm1", "dec_{i}.ln3")
+    rules += _key_wb(f"{d}.linear1", "dec_{i}.ffn.fc1") + _key_wb(f"{d}.linear2", "dec_{i}.ffn.fc2")
+    rules += _key_wb(f"{d}.norm3", "dec_{i}.ffn.ln")
+    rules += _key_wb("bbox_embed.{i}.layers.{j}", "dec_{i}.box_mlp.fc{j}")
+    rules += _key_wb("transformer.enc_output", "enc_out_proj") + \
+        _key_wb("transformer.enc_output_norm", "enc_out_ln")
+    rules += _key_wb("transformer.decoder.ref_point_head.layers.{j}", "ref_point_head.fc{j}")
+    rules += _key_wb("transformer.enc_out_bbox_embed.layers.{j}", "enc_bbox.fc{j}")
+    km = (swin_lib.keymap(cfg.swin).prefixed(ref="backbone.0.", port="swin.")
+          + bert_lib.hf_keymap().prefixed(ref="bert.", port="bert.") + KeyMap(rules))
+    km.aliases = [(re.compile(r"module\.(.*)"), r"\1"),
+                  # the decoder's box heads are the top-level ones (shared modules)
+                  (re.compile(r"transformer\.decoder\.bbox_embed\.(.*)"), r"bbox_embed.\1")]
+    km.ignore += [(re.compile(r"transformer\.decoder\.norm\..*"),
+                   "the decoder's final LayerNorm, which the reference package's decoder does "
+                   "not apply")]
+    return km

@@ -2,8 +2,9 @@
 `grounding/lib.py`.
 
 Phrase-grounded boxes (GroundingDINO) → SAM masks → per-subject
-IP-Adapter local-mode inpainting. The grounder and segmentor are
-callables, so the checkpoint-free fallbacks stand in for the models:
+IP-Adapter local-mode inpainting. `build_segmentator` loads both models
+from their `.pth` files; the grounder and segmentor are callables, so the
+checkpoint-free fallbacks stand in for the models where no files are:
   grounder(image, caption, box_threshold, text_threshold)
       -> (boxes (N, 4) cxcywh in [0, 1], logits (N,), phrases [N str])
   segmentor(image, box_xyxy) -> mask (H, W) float in [0, 1]
@@ -105,17 +106,49 @@ def box_fill_segmentor(image: np.ndarray, box_xyxy: np.ndarray) -> np.ndarray:
     return mask
 
 
-def build_segmentator(ckpt_dir: str = "ckpts/gdino"):
-    """(segmentor, grounder) for a checkpoint directory. Without
-    `sam_vit_h_4b8939.pth` and `gdino.pth` there: the box-fill segmentor and
-    the whole-image grounder. With them: refused, since the port loads the
-    JAX package's parameter trees only (`convert.sam`, `convert.gdino`);
-    loading torch checkpoints is ROADMAP Queue 1, item 2."""
+def _load_bert_tokenizer(ckpt_dir: str):
+    """The caption tokenizer for a real `gdino.pth`: the wordpiece vocab
+    `vocab.txt` beside it. Without it the hash tokenizer would give ids the
+    trained text encoder does not know, so a missing vocab raises."""
+    vocab_path = os.path.join(ckpt_dir, "vocab.txt")
+    if not os.path.exists(vocab_path):
+        raise FileNotFoundError(
+            f"GroundingDINO checkpoint found but no BERT vocab at {vocab_path}; copy "
+            "bert-base-uncased's vocab.txt next to gdino.pth (grounding captions must be "
+            "wordpiece-encoded for the trained text encoder)")
+    from .bert_tokenizer import BertWordpieceTokenizer
+
+    return BertWordpieceTokenizer(vocab_path)
+
+
+def build_segmentator(ckpt_dir: str = "ckpts/gdino", sam_cfg=None, dino_cfg=None, device=None,
+                      times=None):
+    """(segmentor, grounder) for a checkpoint directory. With
+    `sam_vit_h_4b8939.pth` and `gdino.pth` there: SAM (`sam_cfg`, ViT-H by
+    default) in bf16, so its encoder blocks go to K3 on the card, and
+    GroundingDINO (`dino_cfg`, Swin-T by default) in float32 with the
+    wordpiece captions of `vocab.txt`, both on `device` (the card unless
+    the caller asks for the CPU). Without them: the box-fill segmentor and
+    the whole-image grounder. `times` accumulates load seconds as
+    `loaders` does."""
     sam_path = os.path.join(ckpt_dir, "sam_vit_h_4b8939.pth")
     dino_path = os.path.join(ckpt_dir, "gdino.pth")
-    if os.path.exists(sam_path) and os.path.exists(dino_path):
-        raise NotImplementedError(
-            f"{sam_path} and {dino_path}: loading torch checkpoints is not ported yet "
-            "(ROADMAP Queue 1, item 2); build the segmentor and grounder from JAX trees "
-            "with convert.sam / convert.gdino and sam.make_segmentor / gdino.make_grounder")
-    return box_fill_segmentor, cosine_fallback_grounder(None)
+    if not (os.path.exists(sam_path) and os.path.exists(dino_path)):
+        return box_fill_segmentor, cosine_fallback_grounder(None)
+    from .. import loaders
+    from ..core.device import resolve_device
+    from . import gdino as gdino_lib
+    from . import sam as sam_lib
+
+    device = resolve_device(device)
+    tokenizer = _load_bert_tokenizer(ckpt_dir)
+    sam_cfg = sam_cfg or sam_lib.SAMConfig.vit_h()
+    dino_cfg = dino_cfg or gdino_lib.GDinoConfig.swint()
+    sam_t = sam_lib.keymap(sam_cfg).to_port(loaders.read(sam_path, times), what=sam_path)
+    sam = loaders.build(lambda: sam_lib.SAM(sam_cfg), sam_t, device, torch.bfloat16, sam_path,
+                        times)
+    dino_t = gdino_lib.keymap(dino_cfg).to_port(loaders.read(dino_path, times), what=dino_path)
+    dino = loaders.build(lambda: gdino_lib.GDino(dino_cfg), dino_t, device, torch.float32,
+                         dino_path, times)
+    return (sam_lib.make_segmentor(sam, sam_cfg),
+            gdino_lib.make_grounder(dino, dino_cfg, tokenizer=tokenizer))

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.checkpoint import KeyMap, Rule
 from ..models import layers as L
 from ..ops.attention import dot_product_attention
 from ..ops.flash_attention import _reference_relpos2d, flash_attention_relpos2d
@@ -466,8 +467,9 @@ def predict_box_mask(params: SAM, cfg: SAMConfig, img: np.ndarray, box_xyxy) -> 
 def make_segmentor(params: SAM, cfg: SAMConfig, dtype=torch.bfloat16):
     """Serving-path segmentor(image, box_xyxy) → (H, W) float32 {0, 1} mask.
     The module is cast to `dtype` in place (bf16 by default: the mask is
-    thresholded at 0; `dtype=None` keeps the weights' precision).
-    Pre- and post-processing run on the module's device."""
+    thresholded at 0; `dtype=None` keeps the weights' precision) and kept
+    as `segmentor.params`. Pre- and post-processing run on the module's
+    device."""
     if dtype is not None:
         params.to(dtype)
     dev = params.prompt.pe_gaussian.device
@@ -491,4 +493,75 @@ def make_segmentor(params: SAM, cfg: SAMConfig, dtype=torch.bfloat16):
             full = _resize(full, (h, w), antialias=False)
         return (full > 0.0).float().cpu().numpy()
 
+    segmentor.params = params
     return segmentor
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def _convt_to_port(w: torch.Tensor) -> torch.Tensor:
+    """torch ConvTranspose2d (in, out, kh, kw) → the JAX layout the port
+    keeps, (kh, kw, out, in) with the taps mirrored."""
+    return w.permute(2, 3, 1, 0).flip(0, 1)
+
+
+def _convt_to_ref(w: torch.Tensor) -> torch.Tensor:
+    return w.flip(0, 1).permute(3, 2, 0, 1).contiguous()
+
+
+def _row(t: torch.Tensor) -> torch.Tensor:
+    return t[0]
+
+
+def _as_row(t: torch.Tensor) -> torch.Tensor:
+    return t[None]
+
+
+def keymap(cfg: SAMConfig) -> KeyMap:
+    """`sam_vit_h_4b8939.pth` keys ↔ `SAM` (the JAX `convert_from_sam` rules)."""
+    def wb(ref, port, leaves=("weight", "bias")):
+        return [Rule(f"{ref}.{leaf}", f"{port}.{leaf}") for leaf in leaves]
+
+    enc, blk = "image_encoder", "image_encoder.blocks.{i}"
+    rules = wb(f"{enc}.patch_embed.proj", "encoder.patch_embed")
+    rules.append(Rule(f"{enc}.pos_embed", "encoder.pos_embed"))
+    for ref, port in (("norm1", "ln1"), ("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                      ("norm2", "ln2"), ("mlp.lin1", "fc1"), ("mlp.lin2", "fc2")):
+        rules += wb(f"{blk}.{ref}", "encoder.block_{i}." + port)
+    rules += [Rule(f"{blk}.attn.rel_pos_h", "encoder.block_{i}.rel_pos_h"),
+              Rule(f"{blk}.attn.rel_pos_w", "encoder.block_{i}.rel_pos_w")]
+    rules += wb(f"{enc}.neck.0", "encoder.neck_conv1", ("weight",)) + \
+        wb(f"{enc}.neck.1", "encoder.neck_ln1") + \
+        wb(f"{enc}.neck.2", "encoder.neck_conv2", ("weight",)) + wb(f"{enc}.neck.3", "encoder.neck_ln2")
+    pe = "prompt_encoder"
+    rules.append(Rule(f"{pe}.pe_layer.positional_encoding_gaussian_matrix", "prompt.pe_gaussian"))
+    for ref, port in (("point_embeddings.2", "point_embed_0"), ("point_embeddings.3", "point_embed_1"),
+                      ("not_a_point_embed", "not_a_point"), ("no_mask_embed", "no_mask")):
+        rules.append(Rule(f"{pe}.{ref}.weight", f"prompt.{port}", _row, _as_row))
+    md, lay = "mask_decoder", "mask_decoder.transformer.layers.{i}"
+    rules += [Rule(f"{md}.iou_token.weight", "decoder.iou_token"),
+              Rule(f"{md}.mask_tokens.weight", "decoder.mask_tokens")]
+    projs = (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "o"))
+    for ref, port in (("self_attn", "self_attn"), ("cross_attn_token_to_image", "cross_t2i"),
+                      ("cross_attn_image_to_token", "cross_i2t")):
+        for a, b in projs:
+            rules += wb(f"{lay}.{ref}.{a}", "decoder.layer_{i}." + f"{port}.{b}")
+    for j in range(1, 5):
+        rules += wb(f"{lay}.norm{j}", "decoder.layer_{i}." + f"ln{j}")
+    rules += wb(f"{lay}.mlp.lin1", "decoder.layer_{i}.fc1") + wb(f"{lay}.mlp.lin2", "decoder.layer_{i}.fc2")
+    for a, b in projs:
+        rules += wb(f"{md}.transformer.final_attn_token_to_image.{a}", f"decoder.final_attn.{b}")
+    rules += wb(f"{md}.transformer.norm_final_attn", "decoder.final_ln")
+    for ref, port in (("0", "up_conv1"), ("3", "up_conv2")):
+        rules += [Rule(f"{md}.output_upscaling.{ref}.weight", f"decoder.{port}.w",
+                       _convt_to_port, _convt_to_ref),
+                  Rule(f"{md}.output_upscaling.{ref}.bias", f"decoder.{port}.b")]
+    rules += wb(f"{md}.output_upscaling.1", "decoder.up_ln")
+    rules += wb(f"{md}.output_hypernetworks_mlps.{{h}}.layers.{{j}}", "decoder.hyper_{h}.fc{j}")
+    rules += wb(f"{md}.iou_prediction_head.layers.{{j}}", "decoder.iou_head.fc{j}")
+    ignore = [(r"prompt_encoder\.point_embeddings\.[01]\.weight",
+               "point-prompt label embeddings: the segmentor prompts with boxes only"),
+              (r"prompt_encoder\.mask_downscaling\..*", "mask prompts, which are not used"),
+              (r"(pixel_mean|pixel_std)", "normalization constants, fixed in preprocess")]
+    return KeyMap(rules, ignore)

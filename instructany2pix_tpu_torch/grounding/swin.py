@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.checkpoint import KeyMap, Rule
 from ..models import layers as L
 
 
@@ -152,3 +153,28 @@ def apply(params: Swin, x: torch.Tensor, cfg: SwinConfig = SwinConfig()) -> List
             m = getattr(params, f"merge_{s}")
             h = L.linear(m.proj, L.layer_norm(m.ln, h))
     return [outs[s] for s in cfg.out_stages]
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def keymap(cfg: SwinConfig) -> KeyMap:
+    """Official Swin backbone keys ↔ `Swin`. The output norms are
+    `norm1..normN`, one per entry of `cfg.out_stages`."""
+    blk, ours = "layers.{s}.blocks.{b}", "stage{s}_block{b}"
+    rules = [Rule(f"patch_embed.proj.{leaf}", f"patch_embed.{leaf}") for leaf in ("weight", "bias")]
+    rules += [Rule(f"patch_embed.norm.{leaf}", f"patch_ln.{leaf}") for leaf in ("weight", "bias")]
+    for ref, port in (("norm1", "ln1"), ("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                      ("norm2", "ln2"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+        for leaf in ("weight", "bias"):
+            rules.append(Rule(f"{blk}.{ref}.{leaf}", f"{ours}.{port}.{leaf}"))
+    rules.append(Rule(f"{blk}.attn.relative_position_bias_table", f"{ours}.rel_bias"))
+    rules += [Rule(f"layers.{{s}}.downsample.norm.{leaf}", f"merge_{{s}}.ln.{leaf}")
+              for leaf in ("weight", "bias")]
+    rules.append(Rule("layers.{s}.downsample.reduction.weight", "merge_{s}.proj.weight"))
+    for i, s in enumerate(cfg.out_stages):
+        rules += [Rule(f"norm{i + 1}.{leaf}", f"out_ln_{s}.{leaf}") for leaf in ("weight", "bias")]
+    ignore = [(r"layers\.\d+\.blocks\.\d+\.attn\.relative_position_index",
+               "window index buffer, recomputed (_rel_index)"),
+              (r"layers\.\d+\.blocks\.\d+\.attn_mask", "shift mask buffer, recomputed")]
+    return KeyMap(rules, ignore)

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core.checkpoint import KeyMap, Rule
 from ..models import layers as L
 from ..models import llama
 from .constants import IGNORE_INDEX, REPLACEMENT_TYPE
@@ -292,3 +293,26 @@ def train_forward(
         individual["loss_extra"] = loss_extra
         loss = loss + loss_extra
     return loss, individual
+
+
+# ------------------------------------------------------------ checkpoints
+
+HEADS = ("vae_projector_image", "vae_projector_audio", "vae_predictor_image",
+         "vae_predictor_audio")
+
+
+def heads_keymap() -> KeyMap:
+    """The projector and predictor heads, stored under the meta-model as
+    `model.<head>.{0,2}.*` (an MLP: linear, GELU, linear)."""
+    rules = []
+    for name in HEADS:
+        for ref_i, port in (("0", "fc1"), ("2", "fc2")):
+            for leaf in ("weight", "bias"):
+                rules.append(Rule(f"model.{name}.{ref_i}.{leaf}", f"{name}.{port}.{leaf}"))
+    ignore = [(r"vae_.*", "heads outside `model.`, which the reference loader does not read")]
+    return KeyMap(rules, ignore)
+
+
+def keymap() -> KeyMap:
+    """An Any2Pix LLM directory: HF Llama's keys under `llama.`, and the heads."""
+    return llama.hf_keymap().prefixed(port="llama.") + heads_keymap()

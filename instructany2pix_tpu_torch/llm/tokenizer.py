@@ -118,15 +118,18 @@ class ByteTokenizer:
 
 
 def load_tokenizer(path: str | None = None):
-    """HF fast tokenizer if a checkpoint dir exists, else ByteTokenizer."""
-    if path and os.path.isdir(path):
-        try:
-            from transformers import AutoTokenizer
-
-            return AutoTokenizer.from_pretrained(path, use_fast=True)
-        except Exception:
-            pass
-    return ByteTokenizer()
+    """The HF fast tokenizer of a checkpoint's tokenizer directory, else
+    (no directory) the ByteTokenizer. A directory that is there but cannot
+    be read raises: byte ids would mean nothing to the trained LLM."""
+    if not (path and os.path.isdir(path)):
+        return ByteTokenizer()
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            f"{path} holds the LLM's tokenizer, and reading it needs the `transformers` "
+            "package, which is not installed") from e
+    return AutoTokenizer.from_pretrained(path, use_fast=True)
 
 
 def initialize_vision_tokenizer(tokenizer) -> Dict[str, int]:

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..core.checkpoint import KeyMap, Rule
 from . import layers as L
 
 
@@ -145,3 +146,25 @@ def text_apply(
     if cfg.projection_dim:
         out["text_embeds"] = L.linear(params.text_projection, pooled)
     return out
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def text_keymap() -> KeyMap:
+    """HF `CLIPTextModel` / `CLIPTextModelWithProjection` keys ↔ `CLIPText`."""
+    lay = "text_model.encoder.layers.{i}"
+    rules = [
+        Rule("text_model.embeddings.token_embedding.weight", "token_embedding.weight"),
+        Rule("text_model.embeddings.position_embedding.weight", "position_embedding.weight"),
+        Rule("text_model.final_layer_norm.weight", "final_ln.weight"),
+        Rule("text_model.final_layer_norm.bias", "final_ln.bias"),
+        Rule("text_projection.weight", "text_projection.weight"),
+    ]
+    for ref, port in (("layer_norm1", "ln1"), ("layer_norm2", "ln2"), ("self_attn.q_proj", "q"),
+                      ("self_attn.k_proj", "k"), ("self_attn.v_proj", "v"),
+                      ("self_attn.out_proj", "o"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+        for leaf in ("weight", "bias"):
+            rules.append(Rule(f"{lay}.{ref}.{leaf}", "layer_{i}." + f"{port}.{leaf}"))
+    ignore = [(r"text_model\.embeddings\.position_ids", "position ids, a buffer of 0..n-1")]
+    return KeyMap(rules, ignore)

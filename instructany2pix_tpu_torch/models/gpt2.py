@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..core.checkpoint import KeyMap, Rule, transpose
 from . import layers as L
 
 
@@ -79,3 +80,24 @@ def forward(
         h = L.layer_norm(p.ln2, x, cfg.ln_eps)
         x = x + L.linear(p.fc2, F.gelu(L.linear(p.fc1, h), approximate="tanh"))
     return L.layer_norm(params.ln_f, x, cfg.ln_eps)
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def hf_keymap() -> KeyMap:
+    """HF `GPT2Model` keys ↔ `GPT2`'s parameters. HF's Conv1D stores
+    (in, out), so its weights are transposed into `nn.Linear`'s (out, in)."""
+    h = "h.{i}"
+    rules = [Rule("wpe.weight", "wpe.weight"), Rule("ln_f.weight", "ln_f.weight"),
+             Rule("ln_f.bias", "ln_f.bias")]
+    for ref, port, tr in (("ln_1", "ln1", None), ("attn.c_attn", "attn_qkv", transpose),
+                          ("attn.c_proj", "attn_out", transpose), ("ln_2", "ln2", None),
+                          ("mlp.c_fc", "fc1", transpose), ("mlp.c_proj", "fc2", transpose)):
+        rules.append(Rule(f"{h}.{ref}.weight", "layer_{i}." + port + ".weight", tr, tr))
+        rules.append(Rule(f"{h}.{ref}.bias", "layer_{i}." + port + ".bias"))
+    ignore = [
+        (r"wte\.weight", "token embeddings: the prior feeds inputs_embeds only"),
+        (r"h\.\d+\.attn\.(bias|masked_bias)", "causal-mask buffers"),
+    ]
+    return KeyMap(rules, ignore)

@@ -15,6 +15,7 @@ position; `ViT(bias_kv=True)` holds them.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..core.checkpoint import KeyMap, Rule
 from . import layers as L
 
 
@@ -85,7 +87,7 @@ class ViTBlock(nn.Module):
 
 class ViT(nn.Module):
     def __init__(self, cfg: ViTConfig, num_patches: Optional[int] = None, bias_kv: bool = False,
-                 patch_norm: bool = False):
+                 patch_norm: bool = False, pre_ln: Optional[bool] = None):
         super().__init__()
         d = cfg.width
         if num_patches is None:
@@ -95,7 +97,7 @@ class ViT(nn.Module):
             self.patch_norm = nn.LayerNorm(d)
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
         self.pos_embed = nn.Parameter(torch.empty(1, num_patches + 1, d))
-        if cfg.pre_ln:
+        if cfg.pre_ln if pre_ln is None else pre_ln:  # a checkpoint may leave it out
             self.pre_ln = nn.LayerNorm(d)
         for i in range(cfg.layers):
             self.add_module(f"block_{i}", ViTBlock(d, int(d * cfg.mlp_ratio), bias_kv))
@@ -188,3 +190,70 @@ def preprocess_audio(
         mel = (mel - mel.mean()) / (mel.std() + 1e-6)
         clips.append(mel[..., None])
     return np.stack(clips).astype(np.float32)
+
+
+# ------------------------------------------------------------ checkpoints
+
+_STEM_FRAMES = 2  # the vision stem's Conv3d spans two copies of the image
+
+
+def _sum_frames(w: torch.Tensor) -> torch.Tensor:
+    return w.sum(dim=2)  # identical frames: the 3-D kernel sums to a 2-D one
+
+
+def _split_frames(w: torch.Tensor) -> torch.Tensor:
+    return (w / _STEM_FRAMES)[:, :, None].expand(-1, -1, _STEM_FRAMES, -1, -1).contiguous()
+
+
+def _one_token(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(1, -1)
+
+
+def _token_3d(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(1, 1, -1)
+
+
+def keymap(modality: str) -> KeyMap:
+    """`imagebind_huge.pth` keys of one modality ("vision" or "audio") ↔
+    `ViT`. The vision stem is a Conv3d over two identical frames, summed
+    into the 2-D patch embedding (and written back as two halves)."""
+    pre, trunk = f"modality_preprocessors.{modality}", f"modality_trunks.{modality}"
+    head, blk = f"modality_heads.{modality}", f"modality_trunks.{modality}.blocks.{{i}}"
+    if modality == "vision":
+        rules = [Rule(f"{pre}.rgbt_stem.proj.1.weight", "patch_embed.weight",
+                      _sum_frames, _split_frames)]
+    else:
+        rules = [Rule(f"{pre}.audio_stem.proj.1.weight", "patch_embed.weight"),
+                 Rule(f"{pre}.audio_stem.norm_layer.weight", "patch_norm.weight"),
+                 Rule(f"{pre}.audio_stem.norm_layer.bias", "patch_norm.bias")]
+    rules += [
+        Rule(f"{pre}.cls_token", "cls_token", _token_3d, _token_3d),
+        Rule(f"{pre}.pos_embedding_helper.pos_embed", "pos_embed"),
+        Rule(f"{trunk}.pre_transformer_layer.0.weight", "pre_ln.weight"),
+        Rule(f"{trunk}.pre_transformer_layer.0.bias", "pre_ln.bias"),
+        Rule(f"{blk}.attn.in_proj_weight", "block_{i}.qkv.weight"),
+        Rule(f"{blk}.attn.in_proj_bias", "block_{i}.qkv.bias"),
+        Rule(f"{blk}.attn.bias_k", "block_{i}.bias_k", _one_token, _token_3d),
+        Rule(f"{blk}.attn.bias_v", "block_{i}.bias_v", _one_token, _token_3d),
+        Rule(f"{head}.0.weight", "head_ln.weight"),
+        Rule(f"{head}.0.bias", "head_ln.bias"),
+        Rule(f"{head}.2.weight", "head_proj.weight"),
+    ]
+    for ref, port in (("norm_1", "ln1"), ("attn.out_proj", "proj"), ("norm_2", "ln2"),
+                      ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+        for leaf in ("weight", "bias"):
+            rules.append(Rule(f"{blk}.{ref}.{leaf}", "block_{i}." + f"{port}.{leaf}"))
+    return KeyMap(rules)
+
+
+def file_keymap() -> KeyMap:
+    """The whole `imagebind_huge.pth`: vision under `vision.`, audio under
+    `audio.`, and the parts the pipeline does not run on the ignore list."""
+    km = keymap("vision").prefixed(port="vision.") + keymap("audio").prefixed(port="audio.")
+    km.ignore = [
+        (re.compile(r"modality_(preprocessors|trunks|heads|postprocessors)\."
+                    r"(text|depth|thermal|imu)\..*"), "modalities the pipeline does not encode"),
+        (re.compile(r"modality_postprocessors\.(vision|audio)\..*"),
+         "the fixed logit scale of the joint space, ViTConfig.out_scale"),
+    ]
+    return km

@@ -44,6 +44,7 @@ from torch.utils import checkpoint as ckpt_lib
 
 from ..ops import quant as Q
 from ..ops.attention import dot_product_attention
+from ..core.checkpoint import KeyMap, Rule
 from . import layers as L
 
 
@@ -324,3 +325,33 @@ def forward(
     if cache is not None:
         out["cache"] = KVCache(cache.k, cache.v, cache.length + s)
     return out
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+def hf_keymap() -> KeyMap:
+    """HF Llama's state-dict keys ↔ `Llama`'s parameters (the rules of the
+    JAX `convert_from_hf`). HF keeps q and k in its `rotate_half` layout,
+    the one `_rope_apply` takes, so no row is permuted."""
+    lay = "model.layers.{i}"
+    rules = [
+        Rule("model.embed_tokens.weight", "embed_tokens.weight"),
+        Rule(f"{lay}.input_layernorm.weight", "layer_{i}.input_norm.g"),
+        Rule(f"{lay}.self_attn.q_proj.weight", "layer_{i}.q.weight"),
+        Rule(f"{lay}.self_attn.k_proj.weight", "layer_{i}.k.weight"),
+        Rule(f"{lay}.self_attn.v_proj.weight", "layer_{i}.v.weight"),
+        Rule(f"{lay}.self_attn.o_proj.weight", "layer_{i}.o.weight"),
+        Rule(f"{lay}.post_attention_layernorm.weight", "layer_{i}.post_norm.g"),
+        Rule(f"{lay}.mlp.gate_proj.weight", "layer_{i}.gate.weight"),
+        Rule(f"{lay}.mlp.up_proj.weight", "layer_{i}.up.weight"),
+        Rule(f"{lay}.mlp.down_proj.weight", "layer_{i}.down.weight"),
+        Rule("model.norm.weight", "final_norm.g"),
+        Rule("lm_head.weight", "lm_head.weight"),
+    ]
+    ignore = [
+        (r"model\.rotary_emb\..*", "rotary frequencies, recomputed from rope_theta"),
+        (r"model\.layers\.\d+\.self_attn\.rotary_emb\.inv_freq",
+         "rotary frequencies, recomputed from rope_theta"),
+    ]
+    return KeyMap(rules, ignore)

@@ -3,13 +3,14 @@ subject consistency, and SDXL text2img.
 
 Counterpart of the JAX package's `pipeline.py` for `__call__`,
 `forward_llm` and `text2img`. Components are built on the card unless
-the caller passes `device="cpu"`. Without `params` they are random, drawn
-from a `torch.Generator` seeded with `seed`; `llm_quant_bits=4` (or 8)
-then builds the LLM layer by layer, quantizes each layer with
-`quantize_llama` as soon as it exists and fuses its projections, the
-production format. `params` takes the JAX package's parameter trees
-(`convert.pipeline_params`), float or quantized, converted by
-`convert.py`.
+the caller passes `device="cpu"`. With the reference's checkpoint layout
+under `ckpt` they are loaded from it (`loaders.py`); without checkpoints
+or `params` they are random, drawn from a `torch.Generator` seeded with
+`seed`. Either way `llm_quant_bits=4` (or 8) builds the LLM layer by
+layer, quantizes each layer with `quantize_llama` as soon as it exists and
+fuses its projections, the production format. `params` takes the JAX
+package's parameter trees (`convert.pipeline_params`), float or quantized,
+converted by `convert.py`.
 
 Every sampling site draws from one `torch.Generator` seeded with `seed`,
 in a fixed order (LLM sampling, VAE posterior, polar noise, refiner VAE
@@ -23,9 +24,10 @@ feed the JAX draws.
 Subject consistency (`subject_strength > 0`) grounds each image subject
 with `self.grounder`, masks it with `self.segmentor` and repaints the
 region with the inpaint UNet in IP-Adapter local mode. Both callables come
-from `grounding.lib.build_segmentator` (the checkpoint-free fallbacks);
-callers put a SAM segmentor (`grounding.sam.make_segmentor`) or a
-GroundingDINO grounder (`grounding.gdino.make_grounder`) in their place.
+from `grounding.lib.build_segmentator` (SAM and GroundingDINO from
+`<ckpt>/gdino`, else the checkpoint-free fallbacks); callers may put a
+SAM segmentor (`grounding.sam.make_segmentor`) or a GroundingDINO
+grounder (`grounding.gdino.make_grounder`) in their place.
 The inpaint UNet is built when `cfg.inpaint_unet` has 9 input channels;
 otherwise the base UNet serves it (one module, no copy).
 
@@ -46,7 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import convert
+from . import convert, loaders
 from .codecs import image_io
 from .core.device import resolve_device
 from .core.dtypes import DEFAULT, DTypePolicy
@@ -98,9 +100,8 @@ class PipelineConfig:
     image_size: int = 1024
     embed_norm: float = 20.0
     llm_speculative_layers: int = 0  # > 0 refused until speculative decode is ported
-    # grounding configs, kept equal to the JAX config's fields; nothing reads
-    # them until the torch-checkpoint loader (ROADMAP Queue 1, item 2)
-    # builds the models (None selects Swin-T / ViT-H)
+    # the grounding models `build_segmentator` loads from <ckpt>/gdino
+    # (None selects Swin-T / ViT-H)
     gdino: Optional[Any] = None
     sam: Optional[Any] = None
 
@@ -225,13 +226,15 @@ def _random_llm(cfg: mm_lib.Any2PixLMConfig, device, dtype, gen,
 class InstructAny2PixPipeline:
     """Port of the JAX `InstructAny2PixPipeline`.
 
-    Weights come from `params` (a converted JAX tree, `convert.pipeline_params`)
-    or, when it is None, are drawn at random from `seed`. Loading checkpoints
-    is not ported yet (ROADMAP Queue 1, item 2), so a `<ckpt>/<llm_folder>`
-    directory on disk with `params` None raises rather than give random
-    weights beside the real tokenizer. Unlike the JAX constructor, which picks
-    `PipelineConfig.tiny()` when there is neither a checkpoint nor `params`,
-    the port builds `config` or, when it is None, the full `PipelineConfig()`.
+    Weights come from `params` (a converted JAX tree, `convert.pipeline_params`);
+    else, when `<ckpt>/<llm_folder>` exists, from the reference's checkpoint
+    layout under `ckpt` (`loaders.load_pipeline_models`: the LLM quantized
+    with `llm_quant_bits` as it loads, the base UNet pinned to inpaint, and
+    SAM and GroundingDINO from `<ckpt>/gdino`), where a missing file or key
+    raises; else they are drawn at random from `seed`. Unlike the JAX
+    constructor, which picks `PipelineConfig.tiny()` when there is neither a
+    checkpoint nor `params`, the port builds `config` or, when it is None,
+    the full `PipelineConfig()`.
     """
 
     def __init__(
@@ -245,15 +248,15 @@ class InstructAny2PixPipeline:
         llm_folder: str = "llm-retrained",
         llm_quant_bits: Optional[int] = None,
     ):
-        if params is None and os.path.isdir(os.path.join(ckpt, llm_folder)):
-            raise NotImplementedError(
-                f"checkpoints found at {os.path.join(ckpt, llm_folder)}, but loading them is not "
-                "ported yet (ROADMAP Queue 1, item 2): pass `params` (a converted tree) or point "
-                "`ckpt` at a directory without checkpoints for random weights")
         self.device = resolve_device(device)
         self.cfg = config or PipelineConfig()
         if self.cfg.llm is None:
             self.cfg = dataclasses.replace(self.cfg, llm=mm_lib.Any2PixLMConfig())
+        from_disk = params is None and os.path.isdir(os.path.join(ckpt, llm_folder))
+        if from_disk:
+            # the base UNet serves inpainting, as the reference builds its
+            # inpaint pipeline from the base components
+            self.cfg = dataclasses.replace(self.cfg, inpaint_unet=self.cfg.unet)
         if self.cfg.llm_speculative_layers > 0:
             raise NotImplementedError(
                 "speculative decode is not ported yet (ROADMAP Queue 1, item 5)")
@@ -279,16 +282,21 @@ class InstructAny2PixPipeline:
 
         gen = torch.Generator(self.device).manual_seed(seed)
         dtype = policy.param_dtype
+        # seconds of the checkpoint boot: "read", "cast" and "quantize"
+        self.boot_times: Optional[Dict[str, float]] = {} if from_disk else None
         self.models: Dict[str, torch.nn.Module] = {}
-        for name, (make, conv) in _meta_builders(self.cfg).items():
-            if params is not None:
-                self.models[name] = conv(params[name], self.device, dtype)
-            else:
-                self.models[name] = _random_module(make, self.device, dtype, gen)
-        if params is not None:
-            self.models["llm"] = convert.llm(params["llm"], self.cfg.llm, self.device, dtype)
+        if from_disk:
+            self.models = loaders.load_pipeline_models(self.cfg, ckpt, llm_folder, self.device,
+                                                       dtype, llm_quant_bits, self.boot_times)
         else:
-            self.models["llm"] = _random_llm(self.cfg.llm, self.device, dtype, gen, llm_quant_bits)
+            for name, (make, conv) in _meta_builders(self.cfg).items():
+                if params is not None:
+                    self.models[name] = conv(params[name], self.device, dtype)
+                else:
+                    self.models[name] = _random_module(make, self.device, dtype, gen)
+            self.models["llm"] = (
+                convert.llm(params["llm"], self.cfg.llm, self.device, dtype) if params is not None
+                else _random_llm(self.cfg.llm, self.device, dtype, gen, llm_quant_bits))
         # a 9-channel inpaint UNet of its own; else the base UNet inpaints
         icfg = self.cfg.inpaint_unet
         if icfg.in_channels == 9:
@@ -298,7 +306,9 @@ class InstructAny2PixPipeline:
         elif icfg != self.cfg.unet:
             raise ValueError("a 4-channel inpaint_unet config must equal the base UNet's: "
                              "the base UNet serves inpainting")
-        self.segmentor, self.grounder = grounding_lib.build_segmentator(os.path.join(ckpt, "gdino"))
+        self.segmentor, self.grounder = grounding_lib.build_segmentator(
+            os.path.join(ckpt, "gdino"), sam_cfg=self.cfg.sam, dino_cfg=self.cfg.gdino,
+            device=self.device, times=self.boot_times)
 
     # ---------------------------------------------------------- helpers
 

@@ -13,11 +13,12 @@ is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..core.checkpoint import KeyMap, Rule
 from ..models import gpt2
 from ..models import layers as L
 
@@ -69,7 +70,10 @@ class PriorConfig:
 
 
 class Prior(nn.Module):
-    def __init__(self, cfg: PriorConfig = PriorConfig()):
+    """`output_proj` exists when `output_dim` differs from `embed_dim`, or
+    as `output_proj` says (a checkpoint that carries one)."""
+
+    def __init__(self, cfg: PriorConfig = PriorConfig(), output_proj: Optional[bool] = None):
         super().__init__()
         d = cfg.embed_dim
         self.sos = nn.Embedding(32, d)
@@ -79,7 +83,7 @@ class Prior(nn.Module):
         for name, dim in cfg.sequence_input_key:
             if dim > 0:
                 self.add_module(f"proj_{name}", nn.Linear(dim, d))
-        if cfg.output_dim != cfg.embed_dim:
+        if cfg.output_dim != cfg.embed_dim if output_proj is None else output_proj:
             self.output_proj = nn.Linear(d, cfg.output_dim)
 
 
@@ -192,3 +196,24 @@ def generate_diffusion(
     out = _ar_decode(params, cfg, emb, mask, cfg.sequence_gen_length)
     x0_c, x0_u = out.chunk(2, dim=0)
     return _project_out(params, x0_u + guidance_scale * (x0_c - x0_u))
+
+
+# ------------------------------------------------------------ checkpoints
+
+# the reference's input projections by index (`input_sequence_embed_linear.<i>`)
+SEQUENCE_KEY_ORDER = ("src_type", "imagebind", "crossattn_clip", "score", "noisy_inputs")
+
+
+def keymap() -> KeyMap:
+    """`prior/model.bin` ↔ `Prior`: GPT-2 under `model.`, the start, end and
+    modality tables, one input projection per sequence key in
+    `SEQUENCE_KEY_ORDER`, and the output projection."""
+    rules = [Rule("start_of_sequence_tokens.weight", "sos.weight"),
+             Rule("end_of_sequence_tokens.weight", "eos.weight"),
+             Rule("modality_embedding.weight", "modality_embedding.weight"),
+             Rule("output_proj.weight", "output_proj.weight"),
+             Rule("output_proj.bias", "output_proj.bias")]
+    for i, name in enumerate(SEQUENCE_KEY_ORDER):
+        for leaf in ("weight", "bias"):
+            rules.append(Rule(f"input_sequence_embed_linear.{i}.{leaf}", f"proj_{name}.{leaf}"))
+    return gpt2.hf_keymap().prefixed(ref="model.", port="gpt2.") + KeyMap(rules)

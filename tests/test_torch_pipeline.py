@@ -68,20 +68,20 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("llm_folder", ["llm-retrained", "my-llm"])
-def test_checkpoints_on_disk_without_params_are_refused(pipes, tmp_path, monkeypatch, llm_folder):
-    """With <ckpt>/<llm_folder> on disk and no `params`, the JAX constructor
-    loads the checkpoints; the port cannot yet (ROADMAP Queue 1, item 2), so
-    it raises before building any module instead of drawing random weights
-    beside the real tokenizer. Given `params` it builds as before."""
+def test_checkpoints_on_disk_are_loaded_not_drawn(pipes, tmp_path, monkeypatch, llm_folder):
+    """With <ckpt>/<llm_folder> on disk and no `params`, the constructor
+    loads the checkpoints, as the JAX one does; a folder without weight
+    shards raises `FileNotFoundError` and no random module is drawn in
+    their place. Given `params` it builds from them as before."""
     os.makedirs(tmp_path / llm_folder)
 
     def no_module(*_a, **_k):
-        raise AssertionError("a module was built before the checkpoint check")
+        raise AssertionError("a random module was drawn beside checkpoints on disk")
 
     with monkeypatch.context() as m:
         m.setattr(tpl, "_random_module", no_module)
         m.setattr(tpl, "_random_llm", no_module)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+        with pytest.raises(FileNotFoundError, match="no weight shards"):
             InstructAny2PixPipeline(PipelineConfig.tiny(), device="cpu", policy=FP32,
                                     ckpt=str(tmp_path), llm_folder=llm_folder)
     jp, tp = pipes

@@ -92,13 +92,34 @@ def test_grounding_helpers_and_fallbacks_match_jax():
 
 
 def test_build_segmentator(tmp_path):
+    """Without checkpoints: the fallbacks. With `sam_vit_h_4b8939.pth` and
+    `gdino.pth` (random tiny models written under the official keys): the
+    loaded SAM and GroundingDINO, which need `vocab.txt` beside them."""
+    from instructany2pix_tpu_torch.grounding import gdino as tgdino
+    from instructany2pix_tpu_torch.models import layers as L
+
     seg, grd = tlib.build_segmentator(str(tmp_path))
     assert seg is tlib.box_fill_segmentor
     assert grd(np.zeros((8, 8, 3), np.uint8), "dog . cat")[2] == ["dog", "cat"]
-    for name in ("sam_vit_h_4b8939.pth", "gdino.pth"):
-        (tmp_path / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
-        tlib.build_segmentator(str(tmp_path))
+    scfg, gcfg = tsam.SAMConfig.tiny(), tgdino.GDinoConfig.tiny()
+    gen = torch.Generator().manual_seed(0)
+    with torch.device("meta"):
+        sam, dino = tsam.SAM(scfg), tgdino.GDino(gcfg)
+    sam = tsam.init_(L.materialize(sam, torch.device("cpu"), torch.float32), gen)
+    dino = tgdino.init_(L.materialize(dino, torch.device("cpu"), torch.float32), gcfg, gen)
+    for name, m, km in (("sam_vit_h_4b8939.pth", sam, tsam.keymap(scfg)),
+                        ("gdino.pth", dino, tgdino.keymap(gcfg))):
+        torch.save(km.to_ref(dict(m.named_parameters())), str(tmp_path / name))
+    with pytest.raises(FileNotFoundError, match="vocab.txt"):
+        tlib.build_segmentator(str(tmp_path), scfg, gcfg, device="cpu")
+    (tmp_path / "vocab.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "cat", "dog"]))
+    seg, grd = tlib.build_segmentator(str(tmp_path), scfg, gcfg, device="cpu")
+    assert seg.__qualname__.startswith("make_segmentor")
+    assert grd.__qualname__.startswith("make_grounder")
+    img = np.random.RandomState(0).randint(0, 255, (40, 32, 3), np.uint8)
+    mask = seg(img, np.asarray([2.0, 3.0, 20.0, 30.0]))
+    assert mask.shape == (40, 32)
+    assert np.array_equal(mask, tsam.make_segmentor(sam, scfg)(img, np.asarray([2.0, 3.0, 20.0, 30.0])))
 
 
 @pytest.fixture(scope="module")
