@@ -66,7 +66,19 @@ launched exactly once per encoder block, 32 times per segmentor call:
 a finite 1024x1024 image, seconds per stage, peak memory), the SAM
 encoder timed and split into its global and window attentions, and the
 GroundingDINO Swin-T grounder loaded from the tree (float32) on the
-edited image.
+edited image. Then the batched server (`serving.PipelineServer`, batch 4)
+on that pipeline: its real LLM stage on 4 requests whose prompts fall in
+four 64-token buckets (K2 launched exactly 128 times per decode step, all
+on its mma path, every call at M = 4; the same requests served again give
+the same tokens), the batched decode step timed and profiled; 4 image
+requests and a caption-only one through `submit` with the LLM stage
+stubbed by seeded outcomes, served twice (finite 1024x1024 images, the
+caption-only one None, exact K1 count, seconds per stage, latency per
+request, images per second, peak memory; the second serving identical);
+one `__call__` with `diffusion_mode="ipa_lcm"` (4 LCM UNet calls after
+the inversion) and one `serve.run` on the written media. Phase 5 also holds
+the tiny server (batch 3, one caption-only row, the draws injected) on the
+card against the CPU's and against `__call__` on the card.
 
 Training (slice 4): after K3, K1 with a per-row key count (`kv_len`)
 against the router's plain masked path, and K4 (the flash backward)
@@ -182,6 +194,7 @@ K1_SHAPES = [
     ("unet self 32x32", (2, 20, 1024, 64), 1024, False),
     ("unet text cross", (2, 10, 4096, 64), 77, False),
     ("unet ip cross", (2, 10, 4096, 64), 4, False),
+    ("unet self 64x64, served batch 4", (8, 10, 4096, 64), 4096, False),
     ("refiner self 64x64", (2, 12, 4096, 64), 4096, False),
     ("refiner self 32x32", (2, 24, 1024, 64), 1024, False),
     ("ragged d=64", (2, 10, 1000, 64), 999, False),
@@ -237,10 +250,10 @@ def reset_k3(fa):
 QMV_TOL = {"ulp": 2.0**-7, "stol": 2.0**-6, "atol": 2.0**-14}
 QMV_SHAPES = [
     # (label, K, N, format, fusion, rows M, activations)
-    ("7B qkv + norm", 4096, 12288, "int4g", "norm", (1, 16), "bfloat16"),
-    ("7B o + residual", 4096, 4096, "int4g", "residual", (1, 16), "bfloat16"),
-    ("7B gate_up + norm", 4096, 22016, "int4g", "norm", (1, 16), "bfloat16"),
-    ("7B down + swiglu + residual", 11008, 4096, "int4g", "swiglu+residual", (1, 16), "bfloat16"),
+    ("7B qkv + norm", 4096, 12288, "int4g", "norm", (1, 4, 16), "bfloat16"),
+    ("7B o + residual", 4096, 4096, "int4g", "residual", (1, 4, 16), "bfloat16"),
+    ("7B gate_up + norm", 4096, 22016, "int4g", "norm", (1, 4, 16), "bfloat16"),
+    ("7B down + swiglu + residual", 11008, 4096, "int4g", "swiglu+residual", (1, 4, 16), "bfloat16"),
     ("int8 per-channel", 4096, 4096, "int8", "none", (1, 16), "bfloat16"),
     ("int4 per-channel", 4096, 11008, "int4", "none", (1,), "bfloat16"),
     # the TPU probe's shapes (benchmarks/qmv_dma_probe.py:29), int4 group 128
@@ -1750,6 +1763,8 @@ def phase_full_width(failures):
 
 
 def _full_width_from(root, cfg, failures):
+    import gc
+
     import numpy as np
     import torch
 
@@ -1875,9 +1890,13 @@ def _full_width_from(root, cfg, failures):
             f"{out['vae_decode_ms']:.2f} ms; prompt encode {out['prompt_encode_ms']:.2f} ms")
         out["edit"] = phase_edit(pipe, failures, finite)
         out["subject"] = phase_subject(pipe, failures, finite)
+        out["serve"] = phase_serve(pipe, failures, finite, out["edit"])
     finally:
         vae_lib.decode = decode
     del pipe
+    # the server's scheduler holds its pipeline in a reference cycle: collect
+    # it now, so the phases after this one start without its weights
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -2118,6 +2137,345 @@ def phase_edit(pipe, failures, finite):
             + f"; K1 launches {k1} (expected {expected}), K2 {k2}, K3 {k3} (both expected 0); images {non_refined.shape} "
             f"{non_refined.dtype}, finite {all_finite}; peak {out['call_peak_gib']:.2f} GiB")
         pipe.cache = None
+    return out
+
+
+SERVE_BATCH = 4  # requests per microbatch of the full-width server (K2 at M = 4)
+# instructions whose Vicuna prompts (the byte tokenizer: a token per byte)
+# fall in four different 64-token buckets, so every row has its own left pad
+SERVE_INSTS = (
+    "Put <video> in the picture.",
+    "Draw the scene of <video>, with the light of a late afternoon falling on every surface "
+    "of the room.",
+    "Take the sound of <video> and paint it into the picture <video>, as an old oil painting "
+    "of a small antique shop with clocks on the walls and a cat asleep on the counter.",
+    "Describe what an antique shop full of ticking clocks, brass lamps, maps and old books "
+    "would look like at dusk, then tell me which three objects a visitor would notice first "
+    "and why they would stop to look at them for a long while.",
+)
+
+
+def _vicuna_prompt(inst):
+    from instructany2pix_tpu_torch.llm.conversation import conv_templates
+
+    conv = conv_templates["vicuna_v1"].copy()
+    conv.append_message(conv.roles[0], inst)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+def phase_serve(pipe, failures, finite, edit):
+    """The batched server at full width on the pipeline phase 4 booted:
+    `PipelineServer._llm_stage` on 4 requests whose prompts fall in four
+    64-token buckets (K2 at M = 4, 128 launches per decode step, all mma),
+    then 4 image requests and a caption-only one through `submit` with the
+    LLM stage stubbed by seeded outcomes (a random 7B asks for no image),
+    served twice; one `__call__` with `diffusion_mode="ipa_lcm"`; one
+    `serve.run` on the written media. Each with the launch counts set to 0
+    just before and read just after."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch import serve, serving
+    from instructany2pix_tpu_torch.models import llama as llama_lib
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+
+    cfg = pipe.cfg
+    out = {"batch": SERVE_BATCH}
+    per_step = 4 * cfg.llm.llama.num_layers
+
+    def reset():
+        reset_k1(fa)
+        reset_k3(fa)
+        Q.reset_qmv_counts()
+        reset_k4(fa)
+
+    def blocks(name):
+        return sum(isinstance(m, unet_lib.TBlock) for m in pipe.models[name].modules())
+
+    def decode_steps(gen):
+        return min(int(gen.done_at.max()), gen.tokens.shape[1] - 1)
+
+    server = serving.PipelineServer(pipe, max_batch=SERVE_BATCH, max_wait_s=0.5)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            png, wav = _write_media(d)
+            image, audio = {"type": "image", "fname": png}, {"type": "audio", "fname": wav}
+            media = ([image], [audio], [audio, image], [])
+            reqs = [serving.PipelineRequest(inst, m, seed=40 + i)
+                    for i, (inst, m) in enumerate(zip(SERVE_INSTS, media))]
+
+            # ---- the real LLM stage: one batched decode at M = 4
+            # the rows M of every quantized product (each such call on the
+            # card is one K2 launch)
+            rows = collections.Counter()
+            orig = Q.qmatmul
+
+            def recording(x, q, *a, **kw):
+                rows[x.numel() // x.shape[-1]] += 1
+                return orig(x, q, *a, **kw)
+
+            lens = [len(pipe.tokenizer(_vicuna_prompt(r.inst)).input_ids) for r in reqs]
+            tokens = []
+            for rep in range(2):
+                pipe.stage_times = {}
+                reset()
+                Q.qmatmul = recording
+                rows.clear()
+                try:
+                    t0 = time.time()
+                    llm_outs = server._llm_stage(reqs)
+                    torch.cuda.synchronize()
+                    dt = time.time() - t0
+                finally:
+                    Q.qmatmul = orig
+                gen = server.last_generate
+                tokens.append(gen.tokens.cpu())
+                if rep == 0:
+                    steps = decode_steps(gen)
+                    k1, k2 = fa.flash_fwd_cuda.launches, Q.qmv_cuda.launches
+                    out.update({
+                        "llm_stage_seconds": dt, "llm_stage_stage_seconds": dict(pipe.stage_times),
+                        "prompt_tokens": lens, "left_pads": [-(-max(lens) // 64) * 64 - n for n in lens],
+                        "decode_steps": steps, "done_at": gen.done_at.tolist(),
+                        "llm_k2_launches": k2, "llm_k2_by_path": dict(Q.qmv_cuda.launches_by_path),
+                        "llm_k2_rows": dict(rows), "llm_k2_expected": per_step * steps,
+                        "llm_k1_launches": k1, "llm_k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
+                        "llm_k1_expected": cfg.imagebind_vision.layers + cfg.imagebind_audio.layers,
+                        "llm_k3_launches": fa.flash_relpos2d_cuda.launches,
+                        "captions": [o[2][:60] for o in llm_outs]})
+                    out.update({"llm_" + k: v for k, v in no_k4(fa, failures, "serve LLM stage").items()})
+            out["llm_repeat_identical"] = bool(torch.equal(tokens[0], tokens[1]))
+            buckets = {-(-n // 64) for n in lens}
+            ok = (out["llm_k2_launches"] == per_step * steps and steps > 0
+                  and out["llm_k2_by_path"]["mma"] == out["llm_k2_launches"]
+                  and out["llm_k2_rows"] == {SERVE_BATCH: out["llm_k2_launches"]}
+                  and out["llm_k1_launches"] == out["llm_k1_expected"]
+                  and out["llm_k1_by_path"]["wgmma"] == out["llm_k1_launches"]
+                  and out["llm_k3_launches"] == 0 and len(buckets) == len(reqs)
+                  and out["llm_repeat_identical"])
+            if not ok:
+                failures.append(f"serve LLM stage: K2 {out['llm_k2_launches']} by path "
+                                f"{out['llm_k2_by_path']} rows {out['llm_k2_rows']} (expected "
+                                f"{per_step} x {steps} decode steps, all mma at M = {SERVE_BATCH}), "
+                                f"K1 {out['llm_k1_launches']} {out['llm_k1_by_path']} (expected "
+                                f"{out['llm_k1_expected']}, all wgmma), K3 {out['llm_k3_launches']}, "
+                                f"prompt buckets {sorted(buckets)}, repeat identical "
+                                f"{out['llm_repeat_identical']}")
+            log(f"serve LLM stage (batch {SERVE_BATCH}, prompts of {lens} tokens, left pads "
+                f"{out['left_pads']}): {out['llm_stage_seconds']:.3f} s ("
+                + ", ".join(f"{k} {v:.3f} s" for k, v in out["llm_stage_stage_seconds"].items())
+                + f"), {steps} decode steps, K2 launches {out['llm_k2_launches']} "
+                f"{out['llm_k2_by_path']} at M {out['llm_k2_rows']} (expected {per_step * steps}, "
+                f"all mma at M = {SERVE_BATCH}), K1 {out['llm_k1_launches']} "
+                f"{out['llm_k1_by_path']} (expected {out['llm_k1_expected']}: the batch's ImageBind "
+                f"calls), repeat identical {out['llm_repeat_identical']}")
+
+            # the batched decode step, timed and profiled on the same prompts
+            with torch.inference_mode():
+                lm, lcfg = pipe.models["llm"].llama, cfg.llm.llama
+                aux = server._batched_mm_embed(reqs)
+                embs = [pipe._prepare_llm_inputs(r.inst, a)[1] for r, a in zip(reqs, aux)]
+                tgt = -(-max(lens) // 64) * 64
+                emb = torch.cat([torch.nn.functional.pad(e, (0, 0, tgt - e.shape[1], 0))
+                                 for e in embs])
+                pads = torch.tensor([tgt - n for n in lens], device="cuda")
+                cache = llama_lib.KVCache.create(lcfg, SERVE_BATCH, max_len=tgt + 100,
+                                                 dtype=emb.dtype, device="cuda")
+                o = llama_lib.forward(lm, lcfg, inputs_embeds=emb, cache=cache, prefix_pad=pads)
+                cache, tok = o["cache"], o["logits"][:, -1].argmax(-1)
+
+                def decode_step():
+                    nonlocal cache, tok
+                    o = llama_lib.forward(lm, lcfg, inputs_embeds=llama_lib.embed(lm, tok[:, None]),
+                                          cache=cache, prefix_pad=pads)
+                    cache, tok = o["cache"], o["logits"][:, -1].argmax(-1)
+
+                decode_step()
+                td = sorted(time_ms(decode_step, 1, warmup=0) for _ in range(21))
+                prof = profile_window(decode_step, f"batched decode step (M = {SERVE_BATCH})", n=3)
+            out.update({"decode_ms_median": td[10], "decode_ms_range": [td[0], td[-1]],
+                        "decode_profile": prof, "single_decode_ms_median": edit["decode_ms_median"],
+                        "decode_busy": prof["kernel_ms"] / td[10] if prof else None})
+            log(f"batched decode step (M = {SERVE_BATCH}): median {td[10]:.3f} ms of 21 (min "
+                f"{td[0]:.3f}, max {td[-1]:.3f}); M = 1 in this run {edit['decode_ms_median']:.3f} ms"
+                + (f"; {prof['kernel_ms']:.3f} ms of kernels, busy {out['decode_busy']:.1%}, K2 "
+                   f"{prof['by_class'].get('k2', 0.0):.3f} ms" if prof else ""))
+
+            # ---- the diffusion stages through submit, the LLM stage stubbed
+            dd = cfg.llm.image_codec_dim
+
+            def stub(batch):
+                outs = []
+                for r in batch:
+                    if not r.mm_data:
+                        outs.append((None, None, " a caption only", None, None))
+                        continue
+                    rk = np.random.RandomState(r.seed)
+                    outs.append((rk.randn(1, dd).astype(np.float32), rk.randn(dd).astype(np.float32),
+                                 f" a cat in an antique shop, take {r.seed}", r.mm_data[0]["fname"],
+                                 dict(all_objs=[], extra_embeds=np.zeros((0, dd)), extra_idx=[])))
+                return outs
+
+            server._llm_stage = stub
+            edits = [serving.PipelineRequest("Put <video> in the picture.", [image],
+                                             num_inference_steps=EDIT_STEPS, cfg=10.0,
+                                             refinement=0.5, seed=s) for s in (1, 2, 3, 4)]
+            caption_only = serving.PipelineRequest("Describe the shop.", [],
+                                                   num_inference_steps=EDIT_STEPS, cfg=10.0,
+                                                   refinement=0.5, seed=5)
+            ref_steps = int(50 * 0.5)
+            k1_expected = EDIT_STEPS * 5 * blocks("unet") + ref_steps * 2 * blocks("refiner")
+            served = []
+            for rep in range(2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                pipe.stage_times = {}
+                reset()
+                n_decoded = len(finite)
+                done_at = {}
+                t0 = time.time()
+                futs = [server.submit(r) for r in edits + [caption_only]]
+                for i, f in enumerate(futs):
+                    f.add_done_callback(lambda _f, i=i: done_at.__setitem__(i, time.time()))
+                results = [f.result(timeout=900) for f in futs]
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                served.append(results)
+                if rep == 0:
+                    k1 = fa.flash_fwd_cuda.launches
+                    out.update({
+                        "diffusion_wall_seconds": wall,
+                        "latency_seconds": [done_at[i] - t0 for i in range(len(futs))],
+                        "images_per_second": len(edits) / max(done_at[i] - t0
+                                                              for i in range(len(edits))),
+                        "stage_seconds": dict(pipe.stage_times), "k1_launches": k1,
+                        "k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
+                        "k1_expected": k1_expected, "k2_launches": Q.qmv_cuda.launches,
+                        "k3_launches": fa.flash_relpos2d_cuda.launches,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "single_call_seconds": edit["call_seconds"],
+                        "single_call_peak_gib": edit["call_peak_gib"]})
+                    out.update(no_k4(fa, failures, "serve diffusion"))
+                    new_finite = finite[n_decoded:]
+            size = cfg.image_size
+            first, again = served
+            images_ok = all(r.image is not None and r.image.shape == (size, size, 3)
+                            and r.image.dtype == np.uint8 and r.image.std() > 0 for r in first[:4])
+            repeat_ok = all(np.array_equal(a.image, b.image) for a, b in zip(first[:4], again[:4]))
+            differ = all(not np.array_equal(first[i].image, first[j].image)
+                         for i in range(4) for j in range(i + 1, 4))
+            out.update({"images_ok": images_ok, "repeat_identical": repeat_ok,
+                        "seeds_differ": differ, "caption_only_none": first[4].image is None,
+                        "decodes_finite": new_finite,
+                        "mean_pixels": [float(r.image.mean()) for r in first[:4]]})
+            # 2 VAE decodes per microbatch of edits (the denoise and the refiner)
+            ok = (images_ok and repeat_ok and differ and first[4].image is None
+                  and again[4].image is None and len(new_finite) == 2 and all(new_finite)
+                  and out["k1_launches"] == k1_expected
+                  and out["k1_by_path"]["wgmma"] == out["k1_launches"]
+                  and out["k2_launches"] == 0 and out["k3_launches"] == 0)
+            if not ok:
+                failures.append(f"serve diffusion: images ok {images_ok}, repeat identical "
+                                f"{repeat_ok}, seeds differ {differ}, caption-only None "
+                                f"{first[4].image is None}/{again[4].image is None}, decodes finite "
+                                f"{new_finite}, K1 {out['k1_launches']} {out['k1_by_path']} (expected "
+                                f"{k1_expected}, all wgmma), K2 {out['k2_launches']}, K3 "
+                                f"{out['k3_launches']} (expected 0)")
+            log(f"serve diffusion (4 edits + 1 caption-only through submit, batch {SERVE_BATCH}, "
+                f"{EDIT_STEPS} + {EDIT_STEPS} steps, cfg 10, refiner {ref_steps} of 50): "
+                f"{out['images_per_second']:.4f} images/s, latency "
+                + ", ".join(f"{x:.3f}" for x in out["latency_seconds"]) + " s; "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in out["stage_seconds"].items())
+                + f"; K1 launches {out['k1_launches']} {out['k1_by_path']} (expected {k1_expected}, "
+                f"all wgmma), K2 {out['k2_launches']}, K3 {out['k3_launches']}; peak "
+                f"{out['peak_gib']:.2f} GiB; single __call__ in this run {edit['call_seconds']:.3f} s "
+                f"(peak {edit['call_peak_gib']:.2f} GiB); repeat identical {repeat_ok}, seeds differ "
+                f"{differ}, caption-only None {first[4].image is None}")
+
+            # ---- one ipa_lcm edit through __call__ on a seeded cache
+            unet_calls = collections.Counter()
+            apply = unet_lib.apply
+
+            def counting(params, *a, **kw):
+                unet_calls[id(params)] += 1
+                return apply(params, *a, **kw)
+
+            rs = np.random.RandomState(12)
+            pipe.cache = (rs.randn(1, dd).astype(np.float32), rs.randn(dd).astype(np.float32),
+                          " a cat in an antique shop", png,
+                          dict(all_objs=[], extra_embeds=np.zeros((0, dd), np.float32), extra_idx=[]))
+            reset()
+            n_decoded = len(finite)
+            unet_lib.apply = counting
+            try:
+                t0 = time.time()
+                non_refined, refined, msg = pipe("Put <video> in the picture.", [image],
+                                                 num_inference_steps=EDIT_STEPS, refinement=0.0,
+                                                 seed=6, use_cache=True, diffusion_mode="ipa_lcm")
+                torch.cuda.synchronize()
+                lcm_s = time.time() - t0
+            finally:
+                unet_lib.apply = apply
+                pipe.cache = None
+            base_calls = unet_calls[id(pipe.models["unet"])]
+            k1 = fa.flash_fwd_cuda.launches
+            lcm_k1 = EDIT_STEPS * 2 * blocks("unet") + 4 * 3 * blocks("unet")
+            lcm_finite = finite[n_decoded:]
+            out.update({"lcm_seconds": lcm_s, "lcm_unet_calls": base_calls,
+                        "lcm_k1_launches": k1, "lcm_k1_expected": lcm_k1,
+                        "lcm_k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
+                        "lcm_k2_launches": Q.qmv_cuda.launches, "lcm_finite": lcm_finite})
+            out.update({"lcm_" + k: v for k, v in no_k4(fa, failures, "ipa_lcm __call__").items()})
+            if not (msg == "SUCCESS!" and refined.shape == (size, size, 3) and lcm_finite == [True]
+                    and base_calls == EDIT_STEPS + 4 and k1 == lcm_k1
+                    and out["lcm_k2_launches"] == 0):
+                failures.append(f"ipa_lcm __call__: msg {msg!r}, image {refined.shape}, finite "
+                                f"{lcm_finite}, UNet calls {base_calls} (expected {EDIT_STEPS} "
+                                f"inversion + 4 LCM), K1 {k1} (expected {lcm_k1}), K2 "
+                                f"{out['lcm_k2_launches']}")
+            log(f"__call__ with diffusion_mode='ipa_lcm' ({EDIT_STEPS} inversion steps, 4 LCM steps, "
+                f"no refiner): {lcm_s:.3f} s; {base_calls} UNet calls, K1 launches {k1} "
+                f"{out['lcm_k1_by_path']} (expected {lcm_k1}), finite {lcm_finite}")
+
+            # ---- serve.run on the written media: the LLM answers, an image or a caption
+            reset()
+            n_decoded = len(finite)
+            t0 = time.time()
+            caption, result = serve.run(pipe, "add [audio1] to [image1]",
+                                        {"image1": png, "audio1": wav}, steps=EDIT_STEPS,
+                                        refinement=0.5, seed=7)
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+            gen = pipe.last_generate
+            steps = decode_steps(gen)
+            out.update({"run_seconds": run_s, "run_caption": str(caption)[:120],
+                        "run_image": None if result is None else list(result.shape),
+                        "run_k2_launches": Q.qmv_cuda.launches,
+                        "run_k2_by_path": dict(Q.qmv_cuda.launches_by_path),
+                        "run_k2_expected": per_step * steps,
+                        "run_k1_launches": fa.flash_fwd_cuda.launches,
+                        "run_k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path)})
+            out.update({"run_" + k: v for k, v in no_k4(fa, failures, "serve.run").items()})
+            result_ok = result is None or (result.shape == (size, size, 3) and result.dtype == np.uint8
+                                          and all(finite[n_decoded:]))
+            if not (isinstance(caption, str) and result_ok and steps > 0
+                    and out["run_k2_launches"] == per_step * steps
+                    and out["run_k2_by_path"]["mma"] == out["run_k2_launches"]):
+                failures.append(f"serve.run: caption {type(caption)}, image {out['run_image']}, "
+                                f"K2 {out['run_k2_launches']} {out['run_k2_by_path']} (expected "
+                                f"{per_step} x {steps}, all mma)")
+            log(f"serve.run('add [audio1] to [image1]'): {run_s:.3f} s, caption "
+                f"{str(caption)[:60]!r}, image {out['run_image']}; K2 {out['run_k2_launches']} "
+                f"{out['run_k2_by_path']} ({steps} decode steps), K1 {out['run_k1_launches']}")
+    finally:
+        server.stop()
+        pipe.stage_times = None
     return out
 
 
@@ -2767,6 +3125,80 @@ def _tiny_config():
     return dataclasses.replace(PipelineConfig.tiny(), llm=llm)
 
 
+def _tiny_server(cpu, gpu, png, h, failures, levels):
+    """The tiny batched server on the card against the CPU port's, the same
+    injected numpy draws on both: the real LLM stage on two prompts of
+    different lengths (Gumbel draws injected) with identical tokens, then a
+    batch of 3 with one caption-only row (the LLM stage stubbed, the VAE,
+    polar and refiner draws injected) within 1 uint8 level, and a row of it
+    within 1 level of the single-request `__call__` on the card."""
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch import serving
+    from instructany2pix_tpu_torch.ops import quant as Q
+
+    cfg = cpu.cfg
+    out = {}
+    servers = [serving.PipelineServer(p, max_batch=3, max_new_tokens=16) for p in (cpu, gpu)]
+    try:
+        insts = ["describe a cat", "describe a small antique shop full of ticking clocks, brass "
+                                   "lamps and old maps, at dusk, in a few words"]
+        g = np.random.RandomState(40).gumbel(size=(2, 16, cfg.llm.llama.vocab_size)).astype(np.float32)
+        lreqs = [serving.PipelineRequest(x, [], seed=i, llm_gumbel=g[i]) for i, x in enumerate(insts)]
+        Q.reset_qmv_counts()
+        captions = [[o[2] for o in srv._llm_stage(lreqs)] for srv in servers]
+        gc, gg = servers[0].last_generate, servers[1].last_generate
+        same = bool(torch.equal(gc.tokens, gg.tokens.cpu()) and torch.equal(gc.done_at, gg.done_at.cpu()))
+        out.update({"llm_tokens_identical": same, "llm_captions_identical": captions[0] == captions[1],
+                    "llm_k2_by_path": dict(Q.qmv_cuda.launches_by_path)})
+        if not (same and captions[0] == captions[1] and Q.qmv_cuda.launches > 0):
+            failures.append(f"tiny server LLM stage: tokens identical {same}, captions "
+                            f"{captions[0]} vs {captions[1]}, K2 {out['llm_k2_by_path']}")
+
+        dd = cfg.llm.image_codec_dim
+
+        def stub(batch):
+            outs = []
+            for r in batch:
+                if not r.mm_data:
+                    outs.append((None, None, " a caption only", None, None))
+                    continue
+                rk = np.random.RandomState(r.seed)
+                outs.append((rk.randn(1, dd).astype(np.float32), rk.randn(dd).astype(np.float32),
+                             f" a tiny scene {r.seed}", r.mm_data[0]["fname"],
+                             dict(all_objs=[], extra_embeds=np.zeros((0, dd)), extra_idx=[])))
+            return outs
+
+        names = ("vae_noise", "polar_noise", "refiner_vae_noise", "refiner_noise")
+        draws = {s: {k: np.random.RandomState(60 + 4 * s + i).randn(h, h, 4).astype(np.float32)
+                     for i, k in enumerate(names)} for s in (1, 2)}
+        reqs = [serving.PipelineRequest("edit <video>", [{"type": "image", "fname": png}],
+                                        num_inference_steps=3, refinement=0.5, seed=s, **draws[s])
+                for s in (1, 2)]
+        reqs.insert(1, serving.PipelineRequest("describe", [], num_inference_steps=3,
+                                               refinement=0.5, seed=3))
+        results = []
+        for srv in servers:
+            srv._llm_stage = stub
+            results.append(srv._run_batch(reqs))
+        out["caption_only_none"] = results[0][1].image is None and results[1][1].image is None
+        if not out["caption_only_none"]:
+            failures.append("tiny server: the caption-only row returned an image")
+        out["max_levels"] = [levels(results[0][i].image, results[1][i].image, f"server row {i}")
+                             for i in (0, 2)]
+        gpu.cache = stub([reqs[0]])[0]
+        _, single, _ = gpu("edit <video>", reqs[0].mm_data, num_inference_steps=3, refinement=0.5,
+                           seed=0, use_cache=True, **{k: v[None] for k, v in draws[1].items()})
+        gpu.cache = None
+        out["vs_call_max_levels"] = levels(results[1][0].image, single,
+                                           "server row 0 vs __call__ on the card")
+    finally:
+        for srv in servers:
+            srv.stop()
+    return out
+
+
 def phase_tiny_reference(failures):
     """The tiny config in fp32, on the card against the same weights on
     the CPU: text2img and the edit (seeded LLM cache, the same injected
@@ -2847,6 +3279,7 @@ def phase_tiny_reference(failures):
                           subject_noise=subject_noise, **noise))
         out["subject_edit_max_levels"] = levels(imgs[0][1], imgs[1][1],
                                                 "edit with subject consistency")
+        out["server"] = _tiny_server(cpu, gpu, png, h, failures, levels)
 
     # greedy decode: the card's decode steps run K2 in fp32
     with torch.inference_mode():
@@ -2959,12 +3392,14 @@ def main(argv=None) -> int:
     seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "k3_checks": t_k3, "k4_checks": t_k4,
                "full_width": t_full, "train": t_train, "tiny": t_tiny,
                "tiny_train": time.time() - t0, "total": time.time() - t_start}
-    edit, subject = full["edit"], full["subject"]
+    edit, subject, serve = full["edit"], full["subject"], full["serve"]
 
     head = next(r for r in rows if r["dtype"] == "bfloat16")
     k1_paths = {"text2img": sum(r["k1_launches"] for r in full["requests"]),
                 "forward_llm": edit["k1_launches"], "edit_call": edit["call_k1_launches"],
-                "subject_call": subject["k1_launches"], "train": train["launches"]["k1"]}
+                "subject_call": subject["k1_launches"], "train": train["launches"]["k1"],
+                "serve_llm": serve["llm_k1_launches"], "serve_diffusion": serve["k1_launches"],
+                "serve_lcm_call": serve["lcm_k1_launches"], "serve_run": serve["run_k1_launches"]}
     d80 = [r for r in rows if r["dtype"] == "bfloat16" and r["shape"][3] == 80]
     k1 = {
         "name": "flash_fwd",
@@ -2981,7 +3416,9 @@ def main(argv=None) -> int:
             "text2img": {p: sum(r["k1_by_path"][p] for r in full["requests"])
                          for p in full["requests"][0]["k1_by_path"]},
             "forward_llm": edit["k1_by_path"], "edit_call": edit["call_k1_by_path"],
-            "subject_call": subject["k1_by_path"], "train": train["k1_by_path"]},
+            "subject_call": subject["k1_by_path"], "train": train["k1_by_path"],
+            "serve_llm": serve["llm_k1_by_path"], "serve_diffusion": serve["k1_by_path"],
+            "serve_lcm_call": serve["lcm_k1_by_path"], "serve_run": serve["run_k1_by_path"]},
         "max_abs_err": max(r["err_o"] for r in rows if r["dtype"] == "bfloat16"),
         "max_abs_err_fp32": max(r["err_o"] for r in rows if r["dtype"] == "float32"),
         "max_err_of_limit": max(r["of_limit"] for r in rows + k4["k1_kv_len"]),
@@ -2999,6 +3436,10 @@ def main(argv=None) -> int:
         "kv_len_shapes": k4["k1_kv_len"],
         "training_shape": {k: k4["k1_kv_len"][0][k] for k in (
             "label", "shape", "kv_len", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "served_batch_shape": {k: v for k, v in next(
+            r for r in rows if r["dtype"] == "bfloat16" and r["shape"][0] == 8).items()
+            if k in ("label", "shape", "path", "ms", "ms_bshd", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by", "of_limit")},
     }
     qhead = next(r for r in qrows if r["label"] == "7B qkv + norm" and r["m"] == 1)
     k2 = {
@@ -3011,19 +3452,26 @@ def main(argv=None) -> int:
         "replaces": "instructany2pix_tpu/ops/quant.py:294",
         "also_replaces": ["instructany2pix_tpu/ops/quant.py:417",
                           "benchmarks/qmv_dma_probe.py:32"],
-        "launches": edit["k2_launches"],
+        "launches": None,  # the sum over the main paths, below
         "launches_by_path": {"text2img": sum(r["k2_launches"] for r in full["requests"]),
                              "forward_llm": edit["k2_launches"],
                              "edit_call": edit["call_k2_launches"],
                              "subject_call": subject["k2_launches"],
-                             "train": train["launches"]["k2"]},
+                             "train": train["launches"]["k2"],
+                             "serve_llm": serve["llm_k2_launches"],
+                             "serve_diffusion": serve["k2_launches"],
+                             "serve_lcm_call": serve["lcm_k2_launches"],
+                             "serve_run": serve["run_k2_launches"]},
         # the same launches by the kernel path each took (mma, fma), and the
         # tiny float32 greedy decode's, off the main paths
         "launches_by_kernel_path": {
             "text2img": {p: sum(r["k2_by_path"][p] for r in full["requests"])
                          for p in full["requests"][0]["k2_by_path"]},
             "forward_llm": edit["k2_by_path"], "edit_call": edit["call_k2_by_path"],
-            "subject_call": subject["k2_by_path"], "tiny_greedy_decode": tiny["greedy_k2_by_path"]},
+            "subject_call": subject["k2_by_path"], "serve_llm": serve["llm_k2_by_path"],
+            "serve_run": serve["run_k2_by_path"], "tiny_greedy_decode": tiny["greedy_k2_by_path"],
+            "tiny_server_llm": tiny["server"]["llm_k2_by_path"]},
+        "serve_llm_rows": serve["llm_k2_rows"],
         "max_abs_err": max(r["err"] for r in qrows),
         "max_err_of_limit": max(r["of_limit"] for r in qrows),
         "ms": qhead["ms"],
@@ -3036,12 +3484,15 @@ def main(argv=None) -> int:
         "library_call": "F.linear on bf16 weights dequantized ahead of time",
         "headline_shape": "7B qkv + RMSNorm, M=1, K=4096, N=12288, int4 group 128, bf16",
         "decode_step_k2_share": edit.get("k2_share"),
+        "served_decode_step": {k: serve[k] for k in ("decode_ms_median", "decode_ms_range",
+                                                     "decode_busy", "single_decode_ms_median")},
         "shapes": [{k: r[k] for k in ("label", "m", "k", "n", "format", "fusion", "dtype", "path",
                                       "cluster", "chunk", "max_active_clusters", "ms", "ms_eager",
                                       "plain_ms", "library_ms", "bound_ms", "bound_by", "of_bound",
                                       "err", "of_limit")}
                    for r in qrows],
     }
+    k2["launches"] = sum(k2["launches_by_path"].values())
     k3head = next(r for r in k3rows if r["label"] == "sam global block")
     k3win = next(r for r in k3rows if r["label"] == "sam window block")
     k3 = {
@@ -3056,7 +3507,9 @@ def main(argv=None) -> int:
         "launches_by_path": {"text2img": sum(r["k3_launches"] for r in full["requests"]),
                              "forward_llm": edit["k3_launches"], "edit_call": edit["call_k3_launches"],
                              "subject_call": subject["k3_launches"],
-                             "train": train["launches"]["k3"]},
+                             "train": train["launches"]["k3"],
+                             "serve_llm": serve["llm_k3_launches"],
+                             "serve_diffusion": serve["k3_launches"]},
         "max_abs_err": max(r["err_o"] for r in k3rows),
         "max_err_of_limit": max(r["of_limit"] for r in k3rows),
         "ms": k3head["ms"],
@@ -3086,7 +3539,8 @@ def main(argv=None) -> int:
     def per_path(key):
         return {"text2img": sum(r[key] for r in full["requests"]), "forward_llm": edit[key],
                 "edit_call": edit["call_" + key], "subject_call": subject[key],
-                "train": train["launches"][key.split("_")[0]]}
+                "train": train["launches"][key.split("_")[0]],
+                "serve": sum(serve[p + key] for p in ("llm_", "", "lcm_", "run_"))}
 
     k4_paths = per_path("k4_launches")
 
@@ -3134,12 +3588,15 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "kernels": kernels}, f, indent=1, default=str)
-    summary = {k: v for k, v in full.items() if k not in ("edit", "subject", "unet_step_profile")}
+    summary = {k: v for k, v in full.items()
+               if k not in ("edit", "subject", "serve", "unet_step_profile")}
     log(json.dumps({"full_width": summary, "tiny_reference": tiny, "seconds": seconds}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "step_profile"},
                     "tiny_train": tiny_train}, default=str))
     log(json.dumps({"edit": {k: v for k, v in edit.items() if k != "decode_profile"}}))
     log(json.dumps({"subject": subject}, default=str))
+    log(json.dumps({"serve": {k: v for k, v in serve.items() if k != "decode_profile"}},
+                   default=str))
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

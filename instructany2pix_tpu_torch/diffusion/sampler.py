@@ -73,6 +73,31 @@ def loop_invert(eps_fn: Callable, schedule: Schedule, latents: torch.Tensor, ts)
     return lat
 
 
+def loop_denoise_lcm(eps_fn: Callable, schedule: Schedule, latents: torch.Tensor, ts,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LCM consistency sampling over descending `ts` (the JAX package's
+    `scan_denoise_lcm`): each step re-noises to the next timestep with a
+    standard normal draw, from `generator` or from `noise` (steps, B, h, w, C)."""
+    from .schedulers import lcm_step
+
+    ts = [int(t) for t in ts]
+    ts_prev = ts[1:] + [-1]
+    if noise is not None and tuple(noise.shape) != (len(ts),) + tuple(latents.shape):
+        raise ValueError(f"LCM noise shape {tuple(noise.shape)} != {(len(ts),) + tuple(latents.shape)}")
+    b = latents.shape[0]
+    lat = latents
+    for i, (t, t_prev) in enumerate(zip(ts, ts_prev)):
+        eps = eps_fn(lat, t, i)
+        z = (noise[i] if noise is not None
+             else torch.randn(latents.shape, generator=generator, device=latents.device))
+        lat = lcm_step(
+            schedule, eps.float(), torch.full((b,), t), torch.full((b,), t_prev), lat.float(),
+            noise=z.to(device=latents.device, dtype=torch.float32),
+        ).to(latents.dtype)
+    return lat
+
+
 # --------------------------------------------------------- CFG UNet eps_fn
 
 

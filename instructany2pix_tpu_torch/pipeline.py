@@ -13,13 +13,15 @@ package's parameter trees (`convert.pipeline_params`), float or quantized,
 converted by `convert.py`.
 
 Every sampling site draws from one `torch.Generator` seeded with `seed`,
-in a fixed order (LLM sampling, VAE posterior, polar noise, refiner VAE
-posterior, refiner img2img noise, then per inpainted subject the VAE
-posteriors of the image and of the masked image and the inpaint start
-noise), and each takes an injected tensor instead (`vae_noise=`,
-`polar_noise=`, `refiner_vae_noise=`, `refiner_noise=`, and
+in a fixed order (LLM sampling, VAE posterior, polar noise, with
+`diffusion_mode="ipa_lcm"` the 4 LCM steps' noise, refiner VAE posterior,
+refiner img2img noise, then per inpainted subject the VAE posteriors of
+the image and of the masked image and the inpaint start noise), and each
+takes an injected tensor instead (`vae_noise=`, `polar_noise=`,
+`lcm_noise=`, `refiner_vae_noise=`, `refiner_noise=`, and
 `subject_noise=[{"vae", "masked_vae", "inpaint"}, ...]`), so a test can
-feed the JAX draws.
+feed the JAX draws. Media files and base images are decoded once per file
+version (`utils/filecache.py`), as in the JAX pipeline.
 
 Subject consistency (`subject_strength > 0`) grounds each image subject
 with `self.grounder`, masks it with `self.segmentor` and repaints the
@@ -32,8 +34,8 @@ The inpaint UNet is built when `cfg.inpaint_unet` has 9 input channels;
 otherwise the base UNet serves it (one module, no copy).
 
 Not ported yet, and refused with `NotImplementedError`: speculative
-decode (`llm_speculative_layers > 0`), `diffusion_mode="ipa_lcm"` and the
-`debug=True` attention-map dict.
+decode (`llm_speculative_layers > 0`) and the `debug=True` attention-map
+dict.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from .core.dtypes import DEFAULT, DTypePolicy
 from .diffusion import img2img as i2i
 from .diffusion import ip_adapter as ipa
 from .diffusion import sampler as sampler_lib
-from .diffusion.schedulers import Schedule, SchedulerConfig
+from .diffusion.schedulers import Schedule, SchedulerConfig, lcm_timesteps
 from .grounding import lib as grounding_lib
 from .llm import constants as C
 from .llm import generate as gen_lib
@@ -70,6 +72,7 @@ from .models import unet as unet_lib
 from .models import vae as vae_lib
 from .ops import quant as Q
 from .prior import model as prior_lib
+from .utils.filecache import cached
 
 MODALITY = prior_lib.MODALITY
 REPLACEMENT_TYPE = C.REPLACEMENT_TYPE
@@ -78,6 +81,8 @@ REPLACEMENT_TYPE = C.REPLACEMENT_TYPE
 # inference steps: strength slices this fixed grid, whatever the edit's
 # own step count.
 REFINER_NUM_STEPS = 50
+# `diffusion_mode="ipa_lcm"`: 4 LCM steps at guidance 1.0
+LCM_NUM_STEPS = 4
 # Subject inpainting runs on a fixed 50-step grid too, whatever the edit's
 # step count (the JAX pipeline's `_make_inpaint_fn`).
 INPAINT_NUM_STEPS = 50
@@ -385,11 +390,13 @@ class InstructAny2PixPipeline:
         fpath = item["fname"]
         if item["type"] == "image":
             c = self.cfg.imagebind_vision
-            x = imagebind_lib.preprocess_vision(image_io.load_image(fpath), c.image_size or 224)
+            size = c.image_size or 224
+            x = cached(fpath, ("ib_vis", size),
+                       lambda: imagebind_lib.preprocess_vision(image_io.load_image(fpath), size))
             return imagebind_lib.apply(self.models["imagebind_vision"], x, c).float()
         if item["type"] == "audio":
             c = self.cfg.imagebind_audio
-            clips = imagebind_lib.preprocess_audio(_load_wav(fpath))
+            clips = cached(fpath, "ib_aud", lambda: imagebind_lib.preprocess_audio(_load_wav(fpath)))
             emb = imagebind_lib.apply(self.models["imagebind_audio"], clips, c)
             return emb.float().mean(dim=0, keepdim=True)
         raise ValueError(item["type"])
@@ -523,6 +530,9 @@ class InstructAny2PixPipeline:
         return re.findall(r"([^:]+):<video>", matched[0])
 
     def load_base_img(self, base_img_path) -> np.ndarray:
+        if isinstance(base_img_path, (str, bytes)):
+            return cached(base_img_path, ("base", self.cfg.image_size),
+                          lambda: image_io.resize_and_crop(base_img_path, self.cfg.image_size))
         return image_io.resize_and_crop(base_img_path, self.cfg.image_size)
 
     # ------------------------------------------------------------ text2img
@@ -589,14 +599,15 @@ class InstructAny2PixPipeline:
         refiner_vae_noise=None,
         refiner_noise=None,
         subject_noise=None,
+        lcm_noise=None,
     ) -> Any:
         """The edit → (non_refined, refined, "SUCCESS!") uint8 images, or
         (None, None, caption) with `llm_only` or when the LLM asked for no
         image. With `subject_strength > 0` each image subject the LLM named
-        is repainted into the refined image (IP-Adapter local mode)."""
-        if diffusion_mode == "ipa_lcm":
-            raise NotImplementedError(
-                "diffusion_mode='ipa_lcm' is not ported yet (ROADMAP Queue 1, item 3)")
+        is repainted into the refined image (IP-Adapter local mode).
+        `diffusion_mode="ipa_lcm"` denoises in 4 LCM steps at guidance 1.0
+        (it needs LCM-distilled UNet weights for quality); `lcm_noise`
+        (4, 1, h, w, 4) injects their draws."""
         if debug:
             raise NotImplementedError(
                 "debug=True needs the UNet's capture_ip_attn tap, not ported yet "
@@ -650,11 +661,23 @@ class InstructAny2PixPipeline:
             self.models["image_proj"], c.image_proj, clip_image_embeds=latent_la, mode="global"
         )
         with self._stage("denoise"):
-            lat = sampler_lib.denoise(
-                self.models["unet"], c.unet, self.schedule, latent_inv, ctx_p, ctx_null,
-                pooled_p, pooled_null, tid, num_inference_steps=num_inference_steps,
-                guidance_scale=cfg, ip_tokens=ip_cond, ip_tokens_uncond=ip_uncond, ip_scale=scale,
-            )
+            if diffusion_mode == "ipa_lcm":
+                eps_fn = sampler_lib.make_cfg_eps_fn(
+                    self.models["unet"], c.unet, ctx_p, ctx_null, pooled_p, pooled_null, tid,
+                    guidance_scale=1.0, ip_tokens=ip_cond, ip_tokens_uncond=ip_uncond,
+                    ip_scale=scale,
+                )
+                ts = lcm_timesteps(self.schedule, LCM_NUM_STEPS)
+                noise = self._noise(lcm_noise, (len(ts),) + tuple(latent_inv.shape), gen)
+                lat = sampler_lib.loop_denoise_lcm(eps_fn, self.schedule, latent_inv, ts,
+                                                   noise=noise)
+            else:
+                lat = sampler_lib.denoise(
+                    self.models["unet"], c.unet, self.schedule, latent_inv, ctx_p, ctx_null,
+                    pooled_p, pooled_null, tid, num_inference_steps=num_inference_steps,
+                    guidance_scale=cfg, ip_tokens=ip_cond, ip_tokens_uncond=ip_uncond,
+                    ip_scale=scale,
+                )
         with self._stage("vae_decode"):
             img = vae_lib.decode(self.models["vae"], lat, c.vae)
             non_refined = image_io.from_model_range(img[0].float().cpu().numpy())

@@ -19,7 +19,7 @@ from instructany2pix_tpu.core.prng import KeyChain
 from instructany2pix_tpu_torch import convert
 from instructany2pix_tpu_torch import pipeline as tpl
 from instructany2pix_tpu_torch.core.dtypes import FP32
-from torch_port_helpers import assert_close
+from torch_port_helpers import assert_close, one_torch_thread  # noqa: F401 (autouse)
 
 UINT8_TOL = 1
 
@@ -128,7 +128,38 @@ def test_llm_only_returns_caption(pipes, media):
     tp.cache = None
 
 
-@pytest.mark.parametrize("kw", [{"diffusion_mode": "ipa_lcm"}, {"debug": True}])
+@pytest.mark.parametrize("seed,refinement,steps", [(0, 0.5, 2), (4, 0.0, 3)])
+def test_ipa_lcm_edit_matches_jax(pipes, media, seed, refinement, steps):
+    """`diffusion_mode="ipa_lcm"`: inversion over `steps`, then 4 LCM steps
+    at guidance 1.0 whose noise the JAX loop draws from the key after the
+    polar noise's, split in 4."""
+    jp, tp = pipes
+    _seed_cache(jp, media, jnp.asarray)
+    j_non, j_ref, _ = jp("add <video> to <video>", media, num_inference_steps=steps,
+                         refinement=refinement, seed=seed, use_cache=True, diffusion_mode="ipa_lcm")
+    kc = KeyChain(seed)
+    kc()
+    hl = tp._latent_size()
+    shape = (1, hl, hl, 4)
+    draws = {name: np.asarray(jax.random.normal(kc(), shape)) for name in ("vae_noise", "polar_noise")}
+    draws["lcm_noise"] = np.stack([np.asarray(jax.random.normal(k, shape))
+                                   for k in jax.random.split(kc(), 4)])
+    draws.update({name: np.asarray(jax.random.normal(kc(), shape))
+                  for name in ("refiner_vae_noise", "refiner_noise")})
+    _seed_cache(tp, media, np.asarray)
+    t_non, t_ref, t_msg = tp("add <video> to <video>", media, num_inference_steps=steps,
+                             refinement=refinement, seed=seed, use_cache=True,
+                             diffusion_mode="ipa_lcm", **draws)
+    assert t_msg == "SUCCESS!"
+    for name, a, b in (("non_refined", t_non, j_non), ("refined", t_ref, j_ref)):
+        assert a.shape == b.shape == (64, 64, 3) and a.dtype == np.uint8
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        assert d.max() <= UINT8_TOL, (
+            f"ipa_lcm {name} seed {seed}: max {d.max()} levels, mean {d.mean():.4g}, "
+            f"{int((d > 0).sum())} differ")
+
+
+@pytest.mark.parametrize("kw", [{"debug": True}])
 def test_unported_options_raise(pipes, media, kw):
     _, tp = pipes
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -22,7 +22,7 @@ from instructany2pix_tpu_torch.grounding import bert as tbert
 from instructany2pix_tpu_torch.grounding import bert_tokenizer as ttok
 from instructany2pix_tpu_torch.grounding import gdino as tgd
 from instructany2pix_tpu_torch.grounding import swin as tswin
-from torch_port_helpers import assert_close, randn, t
+from torch_port_helpers import assert_close, one_torch_thread, randn, t  # noqa: F401 (autouse)
 
 TOL = 1e-4  # float32 through several layers, relative to the largest value
 DEFORM_TOL = 2e-5  # grid_sample against the JAX gather; the same bilinear weights

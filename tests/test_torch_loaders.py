@@ -40,6 +40,7 @@ from instructany2pix_tpu_torch.models import layers as L
 from instructany2pix_tpu_torch.ops import quant as Q
 
 from ckpt_fixtures import build_checkpoint_tree
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 UINT8_TOL = 1
 UNET_F32_TOL = 1e-3  # of the largest output, against float64
@@ -517,21 +518,30 @@ def test_aliases_and_ignored_keys(tree):
 # ---------------------------------------------------------------- tokenizer
 
 
-def test_tokenizer_directory_needs_transformers(tree, monkeypatch):
-    """A tokenizer directory that cannot be read raises and names the
-    package; no directory gives the byte tokenizer, as in the JAX package."""
-    import builtins
+def test_tokenizer_directory_needs_transformers(tree, tmp_path, monkeypatch):
+    """The tree's tokenizer directory is read from its tokenizer.json with
+    `transformers` masked, to the ids `AutoTokenizer` gives; a directory
+    without tokenizer.json (SentencePiece's tokenizer.model alone) raises
+    and names the file; no directory gives the byte tokenizer, as in the
+    JAX package."""
+    import sys
+
+    from instructany2pix_tpu.llm import tokenizer as jtok
 
     root, _, _ = tree
-    real_import = builtins.__import__
-
-    def no_transformers(name, *a, **k):
-        if name == "transformers" or name.startswith("transformers."):
-            raise ImportError("No module named 'transformers'")
-        return real_import(name, *a, **k)
-
-    monkeypatch.setattr(builtins, "__import__", no_transformers)
-    with pytest.raises(ImportError, match="transformers"):
-        ttok.load_tokenizer(os.path.join(root, LLM, "tokenizer"))
+    tok_dir = os.path.join(root, LLM, "tokenizer")
+    hf = jtok.load_tokenizer(tok_dir)
+    assert not isinstance(hf, jtok.ByteTokenizer)
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    monkeypatch.setitem(sys.modules, "tokenizers", None)
+    port = ttok.load_tokenizer(tok_dir)
+    assert jtok.initialize_vision_tokenizer(hf) == ttok.initialize_vision_tokenizer(port)
+    text = "USER: add <video> to the photo of a cat . ASSISTANT: [a dog] <im_gen><video></s>"
+    assert port(text).input_ids == hf(text).input_ids
+    sp_only = tmp_path / "tokenizer"
+    sp_only.mkdir()
+    (sp_only / "tokenizer.model").write_bytes(b"\x00")
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+        ttok.load_tokenizer(str(sp_only))
     assert isinstance(ttok.load_tokenizer(os.path.join(root, "nowhere")), ttok.ByteTokenizer)
     assert isinstance(ttok.load_tokenizer(None), ttok.ByteTokenizer)

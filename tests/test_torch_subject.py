@@ -29,7 +29,7 @@ from instructany2pix_tpu_torch.diffusion import ip_adapter as tipa
 from instructany2pix_tpu_torch.grounding import lib as tlib
 from instructany2pix_tpu_torch.grounding import morphology as tmorph
 from instructany2pix_tpu_torch.grounding import sam as tsam
-from torch_port_helpers import assert_close, randn, t
+from torch_port_helpers import assert_close, one_torch_thread, randn, t  # noqa: F401 (autouse)
 
 MORPH_TOL = 1e-5  # float32 blur sums in another order; pools are exact
 LATENT_TOL = 2e-4  # float32 through several UNet steps, relative to the largest value

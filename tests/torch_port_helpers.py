@@ -9,6 +9,7 @@ noise.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -33,3 +34,15 @@ def assert_close(port, ref, tol: float, seed: int, rel: bool = False, what: str 
         f"{what}: seed {seed} max diff {d.max():.3g} mean diff {d.mean():.3g} "
         f"> {'rel ' if rel else ''}tol {tol} (limit {limit:.3g})"
     )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one CPU thread in a module that imports this fixture: under
+    pytest-xdist every worker would otherwise start a thread per core, and
+    their OpenMP barriers stall the many small ops of the tiny models by up
+    to two orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
