@@ -80,6 +80,24 @@ the inversion) and one `serve.run` on the written media. Phase 5 also holds
 the tiny server (batch 3, one caption-only row, the draws injected) on the
 card against the CPU's and against `__call__` on the card.
 
+Slice 11: before phase 4, `load_tokenizer` on a directory holding only a
+SentencePiece `tokenizer.model` that the script encodes itself (a mixed
+corpus round-trips; transformers, sentencepiece, tokenizers and protobuf
+stay unloaded). After the server, on phase 4's pipeline (`phase_switches`):
+`forward_llm` with `llm_speculative_layers=4` beside plain greedy decode
+on the same prompt (tokens identical, or diverging only at a printed
+rounding tie: the plain run's top-2 margin below the runs' largest logit
+difference at that step; K2 exactly rounds x (3 x 4 x 4 + 128), split by
+M), one verify and one draft step timed and the verify profiled;
+`__call__(debug=True)` against the same call without it (bit-identical
+images; attention maps (4, 1024, 1024), finite, summing to 1; K1 of the
+call plus 2 per transformer block for the tap); the prior's DDPM path (25
+steps); the CLIP ViT-H/14 image encoder at batch 2 in bf16 on random
+weights (32 K1 launches, all wgmma; image_embeds within K1's limit carried
+through the tower: the spread that moving every attention output by its
+whole limit gives). Phase 5 adds speculative decode and the DDPM prior,
+card against CPU (tokens identical; within 1e-5 relative).
+
 Training (slice 4): after K3, K1 with a per-row key count (`kv_len`)
 against the router's plain masked path, and K4 (the flash backward)
 against the plain backward at the Llama training shape with and without
@@ -199,6 +217,7 @@ K1_SHAPES = [
     ("refiner self 32x32", (2, 24, 1024, 64), 1024, False),
     ("ragged d=64", (2, 10, 1000, 64), 999, False),
     ("imagebind vit-h", (1, 16, 257, 80), 257, False),
+    ("clip vit-h/14 image encoder", (2, 16, 257, 80), 257, False),
     ("non-causal d=80 sq!=sk", (2, 8, 333, 80), 517, False),
     ("llama causal", (1, 32, 600, 128), 600, True),
     ("llama causal sq<sk", (1, 32, 64, 128), 600, True),
@@ -1891,6 +1910,9 @@ def _full_width_from(root, cfg, failures):
         out["edit"] = phase_edit(pipe, failures, finite)
         out["subject"] = phase_subject(pipe, failures, finite)
         out["serve"] = phase_serve(pipe, failures, finite, out["edit"])
+        t0 = time.time()
+        out["switches"] = phase_switches(pipe, failures, finite)
+        out["switches_seconds"] = time.time() - t0
     finally:
         vae_lib.decode = decode
     del pipe
@@ -3111,6 +3133,493 @@ def _profile(step, label, n):
             "k2_kernels": {nm[:120]: c for _, c, nm in kernels if _kernel_class(nm) == "k2"}}
 
 
+# ------------------------------------------------- slice 11: the edit's last switches
+
+SPEC_DRAFT_LAYERS = 4  # llm_speculative_layers of the full-width check
+SPEC_K = 4  # the window generate_speculative takes by default, as forward_llm does
+TOKENIZER_PACKAGES = ("transformers", "sentencepiece", "tokenizers", "google.protobuf")
+# mixed text that a legacy Llama tokenizer must give back exactly
+TOKENIZER_CORPUS = (
+    "the cat sat in the picture", "", " ", "  lead  spaces", "trailing   ", "line\n\nx\ttab",
+    "café crème brûlée ñandú", "日本語のテキスト", "emoji 😀🎨 and ✨", "mixed 日本 😀 ñ text",
+    "A chat between a curious user and an artificial intelligence assistant. USER: put the "
+    "sound of the sea into the picture ASSISTANT: [a beach at dusk]",
+)
+
+
+def _pb_varint(n):
+    """A protobuf varint (a negative int32 as its 64-bit two's complement)."""
+    n &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(num, wire, payload):
+    key = _pb_varint(num << 3 | wire)
+    return key + (_pb_varint(len(payload)) + payload if wire == 2 else payload)
+
+
+def write_sentencepiece_model(path):
+    """A small byte-fallback BPE `tokenizer.model` (SentencePiece's
+    ModelProto) encoded here field by field: <unk> <s> </s>, the 256 byte
+    pieces, a USER_DEFINED <sep>, then letters and a few merges scored by
+    rank; BPE model type, byte fallback, Llama's special ids."""
+    import struct
+
+    learnt = list("▁etaoinshrdlcumwfgypbvkjxqz.,!?:[]") + [
+        "▁t", "he", "▁the", "in", "▁a", "an", "er", "on", "▁c", "at", "▁cat", "▁s", "▁in", "re",
+        "nd", "▁and", "ic", "▁p", "▁pic", "tu", "ture", "▁picture", "ea", "▁se", "▁sea"]
+    pieces = ([("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+              + [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)] + [("<sep>", 0.0, 4)]
+              + [(p, -float(i), 1) for i, p in enumerate(learnt)])
+    body = b"".join(_pb_field(1, 2, _pb_field(1, 2, p.encode()) + _pb_field(2, 5, struct.pack("<f", sc))
+                                 + _pb_field(3, 0, _pb_varint(t))) for p, sc, t in pieces)
+    trainer = b"".join(_pb_field(n, 0, _pb_varint(v))
+                       for n, v in ((3, 2), (35, 1), (40, 0), (41, 1), (42, 2), (43, -1)))
+    normalizer = (_pb_field(1, 2, b"identity") + _pb_field(3, 0, _pb_varint(1))
+                  + _pb_field(4, 0, _pb_varint(0)))
+    with open(path, "wb") as f:
+        f.write(body + _pb_field(2, 2, trainer) + _pb_field(3, 2, normalizer))
+    return len(pieces)
+
+
+def phase_tokenizer_model(failures):
+    """`load_tokenizer` on a directory that holds SentencePiece's
+    `tokenizer.model` and no `tokenizer.json`: the mixed corpus must come
+    back from encode and decode, each generation token must be one id, and
+    none of transformers, sentencepiece, tokenizers or protobuf may be
+    loaded afterwards."""
+    import json as _json
+    import os
+    import tempfile
+
+    from instructany2pix_tpu_torch.llm import tokenizer as tok_lib
+
+    before = [m for m in TOKENIZER_PACKAGES if m in sys.modules]
+    with tempfile.TemporaryDirectory() as d:
+        n_pieces = write_sentencepiece_model(os.path.join(d, "tokenizer.model"))
+        with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+            _json.dump({"tokenizer_class": "LlamaTokenizer", "add_bos_token": True}, f)
+        t0 = time.perf_counter()
+        tok = tok_lib.load_tokenizer(d)
+        load_s = time.perf_counter() - t0
+    gen_ids = tok_lib.initialize_vision_tokenizer(tok)
+    bad = [text for text in TOKENIZER_CORPUS
+           if tok.decode(tok.encode(text, add_special_tokens=False)) != text]
+    single = all(tok.encode(t, add_special_tokens=False) == [i] and tok.decode([i]) == t
+                 for t, i in gen_ids.items())
+    bos = tok.encode("the cat")[0] == tok.bos_token_id == 1
+    after = [m for m in TOKENIZER_PACKAGES if m in sys.modules]
+    out = {"pieces": n_pieces, "load_seconds": load_s, "merges": len(tok._merges),
+           "not_round_tripped": bad, "generation_tokens_single": single, "bos_first": bos,
+           "packages_before": before, "packages_after": after,
+           "kind": type(tok).__name__}
+    if bad or not single or not bos or after or out["kind"] != "JsonTokenizer":
+        failures.append(f"tokenizer.model boot: {out}")
+    log(f"tokenizer.model boot ({n_pieces} pieces, {out['merges']} merges, no tokenizer.json): "
+        f"{out['kind']} in {load_s * 1e3:.1f} ms; {len(TOKENIZER_CORPUS) - len(bad)} of "
+        f"{len(TOKENIZER_CORPUS)} texts round-trip, generation tokens single ids {single}, BOS "
+        f"first {bos}; loaded afterwards of {list(TOKENIZER_PACKAGES)}: {after or 'none'}")
+    return out
+
+
+def _full_logits(llama_lib, s, run):
+    """{output index: logits row (CPU float32)} of every full-model forward
+    over a cache that `run` makes: the prefill's last row predicts token 0;
+    a forward at cache length c predicts tokens c - s + 1 onwards. A later
+    forward over an index replaces an earlier one (the round that emitted
+    it)."""
+    got = {}
+    orig = llama_lib.forward
+
+    def rec(*a, **kw):
+        o = orig(*a, **kw)
+        c = kw.get("cache")
+        if kw.get("layers") is None and c is not None:
+            lg = o["logits"][0].float().cpu()
+            if c.length == 0:
+                got[0] = lg[-1]
+            else:
+                for r in range(lg.shape[0]):
+                    got[c.length - s + r + 1] = lg[r]
+        return o
+
+    llama_lib.forward = rec
+    try:
+        run()
+    finally:
+        llama_lib.forward = orig
+    return got
+
+
+def phase_switches(pipe, failures, finite):
+    """The edit's last switches at full width, on phase 4's pipeline, each
+    with the launch counts set to 0 just before and read just after:
+    `forward_llm` with `llm_speculative_layers` beside plain greedy decode on
+    the same spliced prompt (tokens identical, or diverging only where the
+    plain run's top-2 logit margin is below the two runs' largest logit
+    difference at that step; K2 exactly rounds x ((k - 1) 4 L + 4 x 32),
+    split by M); one verify forward profiled; `__call__(debug=True)` on the
+    seeded LLM cache against the same `__call__` without debug (bit-identical
+    images; attention maps finite, (n_ip, 1024, 1024), summing to 1); the
+    prior's DDPM path (25 steps); the CLIP ViT-H/14 image encoder (batch 2,
+    bf16, random weights: 32 K1 launches, all wgmma, image_embeds within
+    K1's limit of the same tower on plain attention)."""
+    import collections
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.diffusion import ip_adapter as ipa
+    from instructany2pix_tpu_torch.llm import generate as gen_lib
+    from instructany2pix_tpu_torch.llm import speculative as spec_lib
+    from instructany2pix_tpu_torch.models import clip as clip_lib
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import llama as llama_lib
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.prior import model as prior_lib
+
+    cfg = pipe.cfg
+    lm, lcfg = pipe.models["llm"].llama, cfg.llm.llama
+    per_step = 4 * lcfg.num_layers
+    out = {"card": card_line()}
+
+    def reset():
+        reset_k1(fa)
+        reset_k3(fa)
+        Q.reset_qmv_counts()
+        reset_k4(fa)
+
+    def counts(prefix):
+        c = {f"{prefix}k1_launches": fa.flash_fwd_cuda.launches,
+             f"{prefix}k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
+             f"{prefix}k2_launches": Q.qmv_cuda.launches,
+             f"{prefix}k2_by_path": dict(Q.qmv_cuda.launches_by_path),
+             f"{prefix}k3_launches": fa.flash_relpos2d_cuda.launches}
+        c.update({prefix + k: v for k, v in no_k4(fa, failures, prefix.strip("_")).items()})
+        return c
+
+    def blocks(name):
+        return sum(isinstance(m, unet_lib.TBlock) for m in pipe.models[name].modules())
+
+    rows = collections.Counter()
+    orig_qmatmul = Q.qmatmul
+
+    def recording(x, q, *a, **kw):
+        rows[x.numel() // x.shape[-1]] += 1
+        return orig_qmatmul(x, q, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as d:
+        png, wav = _write_media(d)
+        media = [{"type": "image", "fname": png}, {"type": "audio", "fname": wav}]
+        inst = "Put the sound of <video> into the picture <video> and draw it."
+
+        # ---- speculative forward_llm
+        pipe.cfg = dataclasses.replace(cfg, llm_speculative_layers=SPEC_DRAFT_LAYERS)
+        pipe.cache, pipe.stage_times = None, {}
+        reset()
+        rows.clear()
+        Q.qmatmul = recording
+        try:
+            t0 = time.time()
+            res = pipe.forward_llm(inst, media)
+            torch.cuda.synchronize()
+            out["spec_forward_llm_seconds"] = time.time() - t0
+        finally:
+            Q.qmatmul = orig_qmatmul
+            pipe.cfg, pipe.cache = cfg, None
+        out.update(counts("spec_"))
+        spec, rounds = pipe.last_generate, list(pipe.last_rounds)
+        out["spec_stage_seconds"], pipe.stage_times = dict(pipe.stage_times), None
+        n_spec = min(int(spec.done_at[0]) + 1, spec.tokens.shape[1])
+        m1 = len(rounds) * (SPEC_K - 1) * 4 * SPEC_DRAFT_LAYERS
+        mk = len(rounds) * per_step
+        out.update({"spec_rounds": len(rounds), "spec_tokens_per_round": rounds,
+                    "spec_mean_accepted_drafts": (sum(rounds) / len(rounds) - 1) if rounds else None,
+                    "spec_tokens": n_spec, "spec_k2_rows": dict(rows),
+                    "spec_k2_expected": m1 + mk, "spec_k2_rows_expected": {1: m1, SPEC_K: mk},
+                    "spec_k1_expected": cfg.imagebind_vision.layers + cfg.imagebind_audio.layers})
+        ok = (out["spec_k2_launches"] == m1 + mk and out["spec_k2_by_path"]["mma"] == m1 + mk
+              and out["spec_k2_rows"] == {k: v for k, v in {1: m1, SPEC_K: mk}.items() if v}
+              and out["spec_k1_launches"] == out["spec_k1_expected"]
+              and out["spec_k1_by_path"]["wgmma"] == out["spec_k1_launches"]
+              and out["spec_k3_launches"] == 0 and sum(rounds) == n_spec - 1 and len(rounds) > 0
+              and isinstance(res, tuple) and len(res) == 5)
+        if not ok:
+            failures.append(
+                f"speculative forward_llm: K2 {out['spec_k2_launches']} {out['spec_k2_by_path']} "
+                f"at M {out['spec_k2_rows']} (expected {len(rounds)} rounds x "
+                f"({SPEC_K - 1} x 4 x {SPEC_DRAFT_LAYERS} + {per_step}) = {m1 + mk}, all mma, "
+                f"{{1: {m1}, {SPEC_K}: {mk}}}), K1 {out['spec_k1_launches']} (expected "
+                f"{out['spec_k1_expected']}, all wgmma), K3 {out['spec_k3_launches']}, rounds "
+                f"emitted {sum(rounds)} of {n_spec - 1}")
+
+        # ---- plain greedy decode on the same spliced prompt
+        with torch.inference_mode():
+            aux = pipe.embed_mm_data(media)
+            _, emb = pipe._prepare_llm_inputs(inst, aux)
+        eos = pipe.tokenizer.eos_token_id
+        s = emb.shape[1]
+
+        def greedy():
+            return gen_lib.generate(lm, lcfg, emb, None, max_new_tokens=100, temperature=0.0,
+                                    eos_id=eos, dynamic_stop=True)
+
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain = greedy()
+        torch.cuda.synchronize()
+        out["greedy_seconds"] = time.time() - t0
+        out.update(counts("greedy_"))
+        n_plain = min(int(plain.done_at[0]) + 1, plain.tokens.shape[1])
+        steps = min(int(plain.done_at[0]), plain.tokens.shape[1] - 1)
+        out["greedy_k2_expected"] = per_step * steps
+        if (out["greedy_k2_launches"] != per_step * steps or out["greedy_k1_launches"] != 0
+                or out["greedy_k2_by_path"]["mma"] != out["greedy_k2_launches"]):
+            failures.append(f"plain greedy decode: K2 {out['greedy_k2_launches']} "
+                            f"{out['greedy_k2_by_path']} (expected {per_step} x {steps}, all mma), "
+                            f"K1 {out['greedy_k1_launches']} (expected 0)")
+        a, b = spec.tokens[0, :n_spec].tolist(), plain.tokens[0, :n_plain].tolist()
+        identical = a == b
+        out.update({"spec_tokens_identical": identical,
+                    "spec_tokens_per_s": n_spec / out["spec_stage_seconds"]["llm_generate"],
+                    "greedy_tokens_per_s": n_plain / out["greedy_seconds"]})
+        msg = (f"speculative forward_llm (draft {SPEC_DRAFT_LAYERS} of {lcfg.num_layers} layers, "
+               f"k {SPEC_K}): {out['spec_forward_llm_seconds']:.3f} s, {len(rounds)} rounds for "
+               f"{n_spec} tokens, mean accepted drafts {out['spec_mean_accepted_drafts']:.3f}, "
+               f"{out['spec_tokens_per_s']:.1f} tokens/s against plain greedy "
+               f"{out['greedy_tokens_per_s']:.1f} tokens/s ({n_plain} tokens, "
+               f"{out['greedy_seconds']:.3f} s); K2 {out['spec_k2_launches']} at M "
+               f"{out['spec_k2_rows']} (expected {{1: {m1}, {SPEC_K}: {mk}}}), greedy K2 "
+               f"{out['greedy_k2_launches']} (expected {per_step * steps}); tokens identical "
+               f"{identical}")
+        if not identical:
+            i = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), min(len(a), len(b)))
+            sl = _full_logits(llama_lib, s, lambda: spec_lib.generate_speculative(
+                lm, lcfg, emb, max_new_tokens=100, eos_id=eos, draft_layers=SPEC_DRAFT_LAYERS,
+                k_draft=SPEC_K))
+            pl = _full_logits(llama_lib, s, greedy)
+            top2 = pl[i].topk(2).values
+            margin = (top2[0] - top2[1]).item()
+            diff = (pl[i] - sl[i]).abs().max().item()
+            out["spec_divergence"] = {"index": i, "plain_top2_margin": margin,
+                                      "max_logit_difference": diff, "rounding_tie": margin < diff}
+            msg += (f"; first divergence at token {i}: plain top-2 margin {margin:.6g}, largest "
+                    f"logit difference between the runs {diff:.6g}")
+            if not margin < diff:
+                failures.append(f"speculative tokens diverge from plain greedy at {i}, not at a "
+                                f"rounding tie: margin {margin:.6g} >= difference {diff:.6g}")
+        log(msg)
+
+        # ---- one verify (M = k) and one draft step, timed and profiled
+        with torch.inference_mode():
+            cache = llama_lib.KVCache.create(lcfg, 1, max_len=s + 100 + SPEC_K, dtype=emb.dtype,
+                                             device="cuda")
+            cache = llama_lib.forward(lm, lcfg, inputs_embeds=emb, cache=cache)["cache"]
+            win = llama_lib.embed(lm, plain.tokens[:, :SPEC_K])
+            dcache = llama_lib.KVCache(cache.k[:SPEC_DRAFT_LAYERS], cache.v[:SPEC_DRAFT_LAYERS],
+                                       cache.length)
+
+            def verify():
+                llama_lib.forward(lm, lcfg, inputs_embeds=win, cache=cache)
+
+            def draft():
+                llama_lib.forward(lm, lcfg, inputs_embeds=win[:, :1], cache=dcache,
+                                  layers=SPEC_DRAFT_LAYERS)
+
+            verify()
+            vt = sorted(time_ms(verify, 1, warmup=0) for _ in range(11))
+            dt = sorted(time_ms(draft, 1, warmup=1) for _ in range(11))
+            prof = profile_window(verify, f"speculative verify (M = {SPEC_K})", n=3)
+        out.update({"verify_ms_median": vt[5], "draft_step_ms_median": dt[5],
+                    "verify_profile": prof})
+        if prof is not None:
+            out["verify_k2_ms"] = prof["by_class"].get("k2", 0.0)
+        log(f"speculative verify at M = {SPEC_K}: median {vt[5]:.3f} ms of 11 (draft step over "
+            f"{SPEC_DRAFT_LAYERS} layers {dt[5]:.3f} ms)"
+            + (f"; K2 kernels {out['verify_k2_ms']:.3f} ms" if prof is not None else ""))
+
+        # ---- __call__(debug=True) against the same call without debug
+        rs = np.random.RandomState(7)
+        d_img = cfg.llm.image_codec_dim
+        seeded = (rs.randn(1, d_img).astype(np.float32), rs.randn(d_img).astype(np.float32),
+                  " a cat in an antique shop", png,
+                  dict(all_objs=[], extra_embeds=np.zeros((0, d_img), np.float32), extra_idx=[]))
+        ref_steps = int(50 * 0.5)
+        call_k1 = (EDIT_STEPS * 2 * blocks("unet") + EDIT_STEPS * 3 * blocks("unet")
+                   + ref_steps * 2 * blocks("refiner"))
+        tap_k1 = 2 * blocks("unet")  # the tap's forward: self and text cross; IP is plain
+        images = {}
+        n_decoded = len(finite)
+        for debug in (True, False):
+            pipe.cache, pipe.stage_times = seeded, {}
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            images[debug] = pipe(inst, media, num_inference_steps=EDIT_STEPS, refinement=0.5,
+                                 seed=1, use_cache=True, debug=debug)
+            torch.cuda.synchronize()
+            key = "debug_" if debug else "nodebug_"
+            out[key + "call_seconds"] = time.time() - t0
+            out[key + "stage_seconds"] = dict(pipe.stage_times)
+            out.update(counts(key))
+        pipe.cache, pipe.stage_times = None, None
+        msg_d = images[True][2]
+        same = all(np.array_equal(images[True][j], images[False][j]) for j in (0, 1))
+        maps = msg_d.get("attn_maps") if isinstance(msg_d, dict) else None
+        n_ip = cfg.image_proj.num_tokens
+        want_keys = {"attn_maps", "output_caption", "latent_inv", "img_base", "latent_la",
+                     "base_embed", "annotations", "subjec_data", "y"}
+        maps_ok = (maps is not None and tuple(maps.shape) == (n_ip, cfg.image_size, cfg.image_size)
+                   and bool(torch.isfinite(maps).all()))
+        sum_err = (maps.sum(0) - 1).abs().max().item() if maps_ok else float("inf")
+        out.update({"debug_images_identical": same, "debug_keys": sorted(msg_d) if isinstance(msg_d, dict) else None,
+                    "attn_maps_shape": list(maps.shape) if maps is not None else None,
+                    "attn_maps_sum_err": sum_err, "debug_tap_seconds":
+                    out["debug_stage_seconds"].get("debug_tap"),
+                    "debug_k1_expected": call_k1 + tap_k1, "nodebug_k1_expected": call_k1})
+        all_finite = len(finite) - n_decoded == 4 and all(finite[n_decoded:])
+        if not (same and maps_ok and sum_err <= 1e-5 and set(msg_d) == want_keys and all_finite
+                and out["debug_k1_launches"] == call_k1 + tap_k1
+                and out["nodebug_k1_launches"] == call_k1
+                and out["debug_k1_by_path"]["wgmma"] == out["debug_k1_launches"]
+                and out["debug_k2_launches"] == out["debug_k3_launches"] == 0):
+            failures.append(f"__call__(debug=True): images identical to debug=False {same}, maps "
+                            f"{out['attn_maps_shape']} finite {maps_ok} sum error {sum_err:.3g}, "
+                            f"keys {out['debug_keys']}, finite images {all_finite}, K1 "
+                            f"{out['debug_k1_launches']} / {out['nodebug_k1_launches']} (expected "
+                            f"{call_k1 + tap_k1} / {call_k1}), K2 {out['debug_k2_launches']}, K3 "
+                            f"{out['debug_k3_launches']}")
+        log(f"__call__(debug=True) ({EDIT_STEPS} + {EDIT_STEPS} steps, refiner {ref_steps}): "
+            f"{out['debug_call_seconds']:.3f} s against {out['nodebug_call_seconds']:.3f} s "
+            f"without; the tap's forward and maps {out['debug_tap_seconds']:.3f} s; images "
+            f"bit-identical {same}; attn_maps {out['attn_maps_shape']}, finite {maps_ok}, sum over "
+            f"the IP tokens within {sum_err:.3g} of 1; K1 {out['debug_k1_launches']} (expected "
+            f"{call_k1} + {tap_k1} for the tap) [{out['card']}]")
+
+    # ---- the prior's DDPM path at full width
+    with torch.inference_mode():
+        th, tm = pipe._encode_prior_text("")
+        src = torch.randn((1, cfg.prior.imagebind_dim), generator=torch.Generator("cuda").manual_seed(5),
+                          device="cuda")
+        src = src / src.norm() * 100.0
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        y = prior_lib.generate_diffusion(
+            pipe.models["prior"], cfg.prior, prior_lib.MODALITY.VIDEO, prior_lib.MODALITY.IMAGE, src,
+            th, tm, num_inference_steps=25, guidance_scale=10.0, score=6.5,
+            generator=torch.Generator("cuda").manual_seed(6))
+        torch.cuda.synchronize()
+        out["prior_ddpm_seconds"] = time.time() - t0
+        out.update(counts("prior_ddpm_"))
+    want = (1, cfg.prior.sequence_gen_length, cfg.prior.output_dim)
+    ok = (tuple(y.shape) == want and bool(torch.isfinite(y).all())
+          and out["prior_ddpm_k1_launches"] == out["prior_ddpm_k2_launches"] == 0)
+    out["prior_ddpm_shape"] = list(y.shape)
+    if not ok:
+        failures.append(f"prior DDPM path: shape {list(y.shape)} (expected {list(want)}), finite "
+                        f"{bool(torch.isfinite(y).all())}, K1 {out['prior_ddpm_k1_launches']}, K2 "
+                        f"{out['prior_ddpm_k2_launches']} (both expected 0)")
+    log(f"prior DDPM path (25 steps, GPT-2 medium, CFG batch 2): {out['prior_ddpm_seconds']:.3f} s, "
+        f"shape {list(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+
+    # ---- the CLIP ViT-H/14 image encoder, random bf16 weights
+    vcfg = clip_lib.CLIPVisionConfig.vit_h()
+    with torch.device("meta"):
+        vision = clip_lib.CLIPVision(vcfg)
+    vision = L.init_(L.materialize(vision, torch.device("cuda"), torch.bfloat16),
+                     torch.Generator("cuda").manual_seed(11)).eval().requires_grad_(False)
+    rs = np.random.RandomState(12)
+    imgs = [rs.randint(0, 256, (300, 400, 3)).astype(np.uint8),
+            rs.randint(0, 256, (512, 384, 3)).astype(np.uint8)]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        pixels = ipa.preprocess_clip_image(imgs, vcfg.image_size)
+        out["clip_preprocess_ms"] = (time.perf_counter() - t0) * 1e3
+        ipa.encode_clip_image(vision, vcfg, imgs)  # warm
+        reset()
+        emb_k1 = ipa.encode_clip_image(vision, vcfg, imgs)
+        torch.cuda.synchronize()
+        out.update(counts("clip_"))
+        plain_e = clip_lib.vision_apply(vision, pixels, vcfg, impl="xla")["image_embeds"].float()
+        # K1's limit carried through the tower: the plain attention again,
+        # each call's output moved by its whole per-element limit (TOL, as
+        # k1_reference) in a seeded random sign pattern; K1's deviation from
+        # the plain tower must stay within the deviation this gives
+        moved_e = _with_limit_moves(clip_lib, lambda: clip_lib.vision_apply(
+            vision, pixels, vcfg, impl="xla")["image_embeds"].float())
+        got = emb_k1.float()
+        allowed = (moved_e - plain_e).abs().max().item()
+        of_limit = (got - plain_e).abs().max().item() / allowed
+        # the same ratio in root mean square, less bound to bf16 steps of the output
+        of_limit_rms = ((got - plain_e).square().mean() / (moved_e - plain_e).square().mean()).sqrt().item()
+        out["clip_encode_ms"] = time_ms(lambda: clip_lib.vision_apply(vision, pixels, vcfg), 5)
+        out["clip_encode_plain_ms"] = time_ms(
+            lambda: clip_lib.vision_apply(vision, pixels, vcfg, impl="xla"), 5)
+    out.update({"clip_weights_gib": _weight_bytes(vision) / 2**30, "clip_embeds_shape": list(got.shape),
+                "clip_max_abs_err": (got - plain_e).abs().max().item(), "clip_of_limit": of_limit,
+                "clip_limit_carried": allowed, "clip_of_limit_rms": of_limit_rms,
+                "clip_k1_expected": vcfg.num_layers})
+    del vision
+    torch.cuda.empty_cache()
+    ok = (out["clip_k1_launches"] == vcfg.num_layers
+          and out["clip_k1_by_path"]["wgmma"] == vcfg.num_layers and of_limit <= 1.0
+          and bool(torch.isfinite(got).all()) and list(got.shape) == [2, vcfg.projection_dim]
+          and out["clip_k2_launches"] == out["clip_k3_launches"] == 0)
+    if not ok:
+        failures.append(f"CLIP ViT-H/14 encoder: K1 {out['clip_k1_launches']} "
+                        f"{out['clip_k1_by_path']} (expected {vcfg.num_layers}, all wgmma), "
+                        f"image_embeds {list(got.shape)} at {of_limit:.3g} of K1's limit against "
+                        f"the plain attention")
+    log(f"CLIP ViT-H/14 image encoder (batch 2 at 224, bf16, {out['clip_weights_gib']:.2f} GiB): "
+        f"{out['clip_encode_ms']:.2f} ms per encode ({out['clip_encode_plain_ms']:.2f} ms on the "
+        f"plain attention; preprocessing {out['clip_preprocess_ms']:.1f} ms on the host), K1 "
+        f"{out['clip_k1_launches']} {out['clip_k1_by_path']} (expected {vcfg.num_layers}, all "
+        f"wgmma), image_embeds max |diff| {out['clip_max_abs_err']:.3g} against the plain "
+        f"attention = {of_limit:.3f} of K1's limit carried through the tower "
+        f"({allowed:.3g}: each attention moved by 2^-7 |o| + 2^-5 sigma; in RMS "
+        f"{of_limit_rms:.3f}) [{out['card']}]")
+    return out
+
+
+def _with_limit_moves(module, run, seed=13):
+    """`run()` with `module.dot_product_attention` on the plain path and
+    each output element moved by K1's whole limit for that call (TOL's
+    bf16 rtol |o| + stol sigma, sigma as `k1_reference` computes it), the
+    signs drawn from a seeded generator."""
+    import torch
+
+    orig = module.dot_product_attention
+    gen = torch.Generator("cuda").manual_seed(seed)
+    tol = TOL["bfloat16"]
+
+    def moved(q, k, v, *, causal=False, mask=None, impl="auto", **kw):
+        o = orig(q, k, v, causal=causal, mask=mask, impl="xla", **kw)
+        qt, kt, vt = (x.transpose(1, 2).float() for x in (q, k, v))
+        p = torch.softmax(torch.matmul(qt, kt.transpose(-1, -2)) * q.shape[-1] ** -0.5, dim=-1)
+        sigma = torch.matmul(p.square(), vt.square()).sqrt().transpose(1, 2)
+        lim = tol["rtol"] * o.float().abs() + tol["stol"] * sigma
+        sign = torch.randint(0, 2, o.shape, generator=gen, device=o.device) * 2 - 1
+        return (o.float() + sign * lim).to(o.dtype)
+
+    module.dot_product_attention = moved
+    try:
+        return run()
+    finally:
+        module.dot_product_attention = orig
+
+
+
 def _tiny_config():
     """PipelineConfig.tiny() with a small LLM whose decoder linears all
     qualify for int4 group 128 (hidden 256, intermediate 512)."""
@@ -3214,9 +3723,11 @@ def phase_tiny_reference(failures):
     from instructany2pix_tpu_torch.grounding import sam as sam_lib
     from instructany2pix_tpu_torch.models import layers as L
     from instructany2pix_tpu_torch.llm import generate as gen_lib
+    from instructany2pix_tpu_torch.llm import speculative as spec_lib
     from instructany2pix_tpu_torch.models import llama as llama_lib
     from instructany2pix_tpu_torch.ops import quant as Q
     from instructany2pix_tpu_torch.pipeline import InstructAny2PixPipeline
+    from instructany2pix_tpu_torch.prior import model as prior_lib
 
     cfg = _tiny_config()
     cpu = InstructAny2PixPipeline(cfg, seed=0, device="cpu", policy=FP32, llm_quant_bits=4)
@@ -3316,6 +3827,41 @@ def phase_tiny_reference(failures):
             failures.append(f"tiny teacher-forced logits differ by {rel:.3g} of their largest")
         log(msg + f" (K2 launches on the card: {out['greedy_k2_launches']} "
             f"{out['greedy_k2_by_path']})")
+
+        # speculative greedy decode (draft 1 of 2 layers, window 4) on both devices
+        sk = dict(max_new_tokens=16, eos_id=-1, draft_layers=1, k_draft=SPEC_K)
+        sc = spec_lib.generate_speculative(cpu.models["llm"].llama, lcfg, emb_c, **sk).tokens[0]
+        sg = spec_lib.generate_speculative(gpu.models["llm"].llama, lcfg, emb_c.cuda(),
+                                           **sk).tokens[0].cpu()
+        out["speculative_tokens_identical"] = bool(torch.equal(sc, sg))
+        if not out["speculative_tokens_identical"]:
+            failures.append(f"tiny speculative decode: card tokens {sg.tolist()} != CPU "
+                            f"{sc.tolist()}")
+
+        # the prior's DDPM path, the same injected draws on both devices
+        pc = cfg.prior
+        rs = np.random.RandomState(40)
+        shape = (1, pc.sequence_gen_length, pc.embed_dim)
+        src, th = rs.randn(1, pc.imagebind_dim), rs.randn(1, pc.text_len, pc.text_dim)
+        tm = (np.arange(pc.text_len) < 4).astype(np.float32)[None]
+        lat0 = rs.randn(*shape)
+        noise = [rs.randn(*shape) for _ in range(25)]
+        ys = []
+        for p, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            def f32(x):
+                return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+            ys.append(prior_lib.generate_diffusion(
+                p.models["prior"], pc, prior_lib.MODALITY.VIDEO, prior_lib.MODALITY.IMAGE, f32(src),
+                f32(th), f32(tm), num_inference_steps=25, latents=f32(lat0),
+                noise=[f32(n) for n in noise]).cpu())
+        rel_p = ((ys[1] - ys[0]).abs().max() / ys[0].abs().max()).item()
+        out["prior_ddpm_rel"] = rel_p
+        if not rel_p <= 1e-5:
+            failures.append(f"tiny prior DDPM path: card vs CPU {rel_p:.3g} of the largest (limit 1e-5)")
+        log(f"tiny fp32 speculative decode (draft 1 of 2 layers, k {SPEC_K}, 16 tokens): card "
+            f"tokens identical to the CPU's {out['speculative_tokens_identical']}; tiny prior DDPM "
+            f"path (25 steps, injected draws): card vs CPU max rel diff {rel_p:.3g}")
     return out
 
 
@@ -3379,6 +3925,9 @@ def main(argv=None) -> int:
     k4 = phase_k4(failures)
     t_k4 = time.time() - t0
     t0 = time.time()
+    tok_model = phase_tokenizer_model(failures)
+    t_tok = time.time() - t0
+    t0 = time.time()
     full = phase_full_width(failures)
     t_full = time.time() - t0
     t0 = time.time()
@@ -3390,16 +3939,21 @@ def main(argv=None) -> int:
     t0 = time.time()
     tiny_train = phase_tiny_train(failures)
     seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "k3_checks": t_k3, "k4_checks": t_k4,
-               "full_width": t_full, "train": t_train, "tiny": t_tiny,
+               "tokenizer_model": t_tok, "full_width": t_full, "train": t_train, "tiny": t_tiny,
                "tiny_train": time.time() - t0, "total": time.time() - t_start}
     edit, subject, serve = full["edit"], full["subject"], full["serve"]
+    sw = full["switches"]
 
     head = next(r for r in rows if r["dtype"] == "bfloat16")
     k1_paths = {"text2img": sum(r["k1_launches"] for r in full["requests"]),
                 "forward_llm": edit["k1_launches"], "edit_call": edit["call_k1_launches"],
                 "subject_call": subject["k1_launches"], "train": train["launches"]["k1"],
                 "serve_llm": serve["llm_k1_launches"], "serve_diffusion": serve["k1_launches"],
-                "serve_lcm_call": serve["lcm_k1_launches"], "serve_run": serve["run_k1_launches"]}
+                "serve_lcm_call": serve["lcm_k1_launches"], "serve_run": serve["run_k1_launches"],
+                "speculative_forward_llm": sw["spec_k1_launches"],
+                "greedy_decode": sw["greedy_k1_launches"], "debug_call": sw["debug_k1_launches"],
+                "nodebug_call": sw["nodebug_k1_launches"], "prior_ddpm": sw["prior_ddpm_k1_launches"],
+                "clip_encode": sw["clip_k1_launches"]}
     d80 = [r for r in rows if r["dtype"] == "bfloat16" and r["shape"][3] == 80]
     k1 = {
         "name": "flash_fwd",
@@ -3418,7 +3972,11 @@ def main(argv=None) -> int:
             "forward_llm": edit["k1_by_path"], "edit_call": edit["call_k1_by_path"],
             "subject_call": subject["k1_by_path"], "train": train["k1_by_path"],
             "serve_llm": serve["llm_k1_by_path"], "serve_diffusion": serve["k1_by_path"],
-            "serve_lcm_call": serve["lcm_k1_by_path"], "serve_run": serve["run_k1_by_path"]},
+            "serve_lcm_call": serve["lcm_k1_by_path"], "serve_run": serve["run_k1_by_path"],
+            **{p: sw[f"{k}_k1_by_path"] for p, k in (
+                ("speculative_forward_llm", "spec"), ("greedy_decode", "greedy"),
+                ("debug_call", "debug"), ("nodebug_call", "nodebug"),
+                ("prior_ddpm", "prior_ddpm"), ("clip_encode", "clip"))}},
         "max_abs_err": max(r["err_o"] for r in rows if r["dtype"] == "bfloat16"),
         "max_abs_err_fp32": max(r["err_o"] for r in rows if r["dtype"] == "float32"),
         "max_err_of_limit": max(r["of_limit"] for r in rows + k4["k1_kv_len"]),
@@ -3440,6 +3998,13 @@ def main(argv=None) -> int:
             r for r in rows if r["dtype"] == "bfloat16" and r["shape"][0] == 8).items()
             if k in ("label", "shape", "path", "ms", "ms_bshd", "plain_ms", "library_ms",
                      "bound_ms", "bound_by", "of_limit")},
+        "clip_encoder_shape": {k: v for k, v in next(
+            r for r in rows if r["dtype"] == "bfloat16" and r["label"].startswith("clip")).items()
+            if k in ("label", "shape", "path", "ms", "ms_bshd", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by", "of_limit")},
+        "clip_encoder": {k: sw[k] for k in ("clip_encode_ms", "clip_encode_plain_ms",
+                                            "clip_max_abs_err", "clip_of_limit",
+                                            "clip_of_limit_rms")},
     }
     qhead = next(r for r in qrows if r["label"] == "7B qkv + norm" and r["m"] == 1)
     k2 = {
@@ -3461,7 +4026,13 @@ def main(argv=None) -> int:
                              "serve_llm": serve["llm_k2_launches"],
                              "serve_diffusion": serve["k2_launches"],
                              "serve_lcm_call": serve["lcm_k2_launches"],
-                             "serve_run": serve["run_k2_launches"]},
+                             "serve_run": serve["run_k2_launches"],
+                             "speculative_forward_llm": sw["spec_k2_launches"],
+                             "greedy_decode": sw["greedy_k2_launches"],
+                             "debug_call": sw["debug_k2_launches"],
+                             "nodebug_call": sw["nodebug_k2_launches"],
+                             "prior_ddpm": sw["prior_ddpm_k2_launches"],
+                             "clip_encode": sw["clip_k2_launches"]},
         # the same launches by the kernel path each took (mma, fma), and the
         # tiny float32 greedy decode's, off the main paths
         "launches_by_kernel_path": {
@@ -3470,8 +4041,12 @@ def main(argv=None) -> int:
             "forward_llm": edit["k2_by_path"], "edit_call": edit["call_k2_by_path"],
             "subject_call": subject["k2_by_path"], "serve_llm": serve["llm_k2_by_path"],
             "serve_run": serve["run_k2_by_path"], "tiny_greedy_decode": tiny["greedy_k2_by_path"],
-            "tiny_server_llm": tiny["server"]["llm_k2_by_path"]},
+            "tiny_server_llm": tiny["server"]["llm_k2_by_path"],
+            "speculative_forward_llm": sw["spec_k2_by_path"], "greedy_decode": sw["greedy_k2_by_path"]},
         "serve_llm_rows": serve["llm_k2_rows"],
+        "speculative_rows": sw["spec_k2_rows"],
+        "speculative_verify": {k: sw.get(k) for k in ("verify_ms_median", "verify_k2_ms",
+                                                      "draft_step_ms_median")},
         "max_abs_err": max(r["err"] for r in qrows),
         "max_err_of_limit": max(r["of_limit"] for r in qrows),
         "ms": qhead["ms"],
@@ -3509,7 +4084,11 @@ def main(argv=None) -> int:
                              "subject_call": subject["k3_launches"],
                              "train": train["launches"]["k3"],
                              "serve_llm": serve["llm_k3_launches"],
-                             "serve_diffusion": serve["k3_launches"]},
+                             "serve_diffusion": serve["k3_launches"],
+                             **{p: sw[f"{k}_k3_launches"] for p, k in (
+                                 ("speculative_forward_llm", "spec"), ("greedy_decode", "greedy"),
+                                 ("debug_call", "debug"), ("nodebug_call", "nodebug"),
+                                 ("prior_ddpm", "prior_ddpm"), ("clip_encode", "clip"))}},
         "max_abs_err": max(r["err_o"] for r in k3rows),
         "max_err_of_limit": max(r["of_limit"] for r in k3rows),
         "ms": k3head["ms"],
@@ -3540,7 +4119,9 @@ def main(argv=None) -> int:
         return {"text2img": sum(r[key] for r in full["requests"]), "forward_llm": edit[key],
                 "edit_call": edit["call_" + key], "subject_call": subject[key],
                 "train": train["launches"][key.split("_")[0]],
-                "serve": sum(serve[p + key] for p in ("llm_", "", "lcm_", "run_"))}
+                "serve": sum(serve[p + key] for p in ("llm_", "", "lcm_", "run_")),
+                "switches": sum(sw[p + key] for p in ("spec_", "greedy_", "debug_", "nodebug_",
+                                                       "prior_ddpm_", "clip_"))}
 
     k4_paths = per_path("k4_launches")
 
@@ -3584,12 +4165,13 @@ def main(argv=None) -> int:
     k4b = k4_entry("flash_bwd_dkv", 367, ("dk", "dv"))
     kernels = [k1, k2, k3, k4a, k4b]
     result = {"card": card, "k2_shapes": qrows, "k4": k4, "full_width": full, "train": train,
-              "tiny_reference": tiny, "tiny_train": tiny_train, "seconds": seconds}
+              "tiny_reference": tiny, "tiny_train": tiny_train, "tokenizer_model": tok_model,
+              "seconds": seconds}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "kernels": kernels}, f, indent=1, default=str)
     summary = {k: v for k, v in full.items()
-               if k not in ("edit", "subject", "serve", "unet_step_profile")}
+               if k not in ("edit", "subject", "serve", "switches", "unet_step_profile")}
     log(json.dumps({"full_width": summary, "tiny_reference": tiny, "seconds": seconds}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "step_profile"},
                     "tiny_train": tiny_train}, default=str))
@@ -3597,6 +4179,8 @@ def main(argv=None) -> int:
     log(json.dumps({"subject": subject}, default=str))
     log(json.dumps({"serve": {k: v for k, v in serve.items() if k != "decode_profile"}},
                    default=str))
+    log(json.dumps({"switches": {k: v for k, v in sw.items() if k != "verify_profile"},
+                    "tokenizer_model": tok_model}, default=str))
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

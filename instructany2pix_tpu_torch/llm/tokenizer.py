@@ -9,9 +9,15 @@ Two backends:
     tokenizer saves) with no `transformers` or `tokenizers` import, when
     a checkpoint's tokenizer directory is on disk. It covers Llama's
     SentencePiece BPE (byte fallback, `Prepend("▁")` + `Replace(" ", "▁")`
-    normalizer, `Replace`/`ByteFallback`/`Fuse`/`Strip` decoder) and
-    WordLevel over the `Whitespace` pre-tokenizer; any other component
-    raises and names itself rather than give other ids.
+    normalizer or a `Metaspace` pre-tokenizer, `Replace`/`ByteFallback`/
+    `Fuse`/`Strip`/`Metaspace` decoder) and WordLevel over the
+    `Whitespace` pre-tokenizer; any other component raises and names
+    itself rather than give other ids. A directory that holds only
+    SentencePiece's `tokenizer.model` is read too, with no `sentencepiece`
+    or `protobuf` import: `read_sentencepiece` decodes the protobuf by hand
+    and `sentencepiece_spec` builds from it the `tokenizer.json` spec that
+    transformers' `LlamaConverter` builds (`AutoTokenizer` converts such a
+    directory that way).
   * `ByteTokenizer` — a deterministic byte-level fallback with the same
     special-token semantics, used for tests and checkpoint-free runs.
 """
@@ -21,6 +27,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import struct
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -158,7 +165,7 @@ def _decoder_steps(spec: Optional[dict]) -> List[dict]:
         return []
     if spec["type"] == "Sequence":
         return [st for sub in spec["decoders"] for st in _decoder_steps(sub)]
-    if spec["type"] not in ("Replace", "ByteFallback", "Fuse", "Strip"):
+    if spec["type"] not in ("Replace", "ByteFallback", "Fuse", "Strip", "Metaspace"):
         raise NotImplementedError(f"tokenizer.json: decoder {spec['type']} is not read")
     return [spec]
 
@@ -197,6 +204,17 @@ def _strip(tok: str, content: str, start: int, stop: int) -> str:
         b -= 1
         n += 1
     return tok[a:b]
+
+
+def _metaspace(spec: dict) -> Tuple[str, str, bool]:
+    """(replacement, prepend scheme, split) of a Metaspace pre-tokenizer or
+    decoder; files written before `prepend_scheme` carry `add_prefix_space`."""
+    scheme = spec.get("prepend_scheme")
+    if scheme is None:
+        scheme = "always" if spec.get("add_prefix_space", True) else "never"
+    if scheme not in ("always", "first", "never"):
+        raise NotImplementedError(f"tokenizer.json: Metaspace prepend_scheme {scheme!r}")
+    return spec.get("replacement", "▁"), scheme, bool(spec.get("split", True))
 
 
 def _token_content(tok) -> Optional[str]:
@@ -245,9 +263,11 @@ class JsonTokenizer:
                 self._merges[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b])
         self._normalize = _normalizer_steps(spec.get("normalizer"))
         pre = spec.get("pre_tokenizer")
-        if pre is not None and pre["type"] != "Whitespace":
+        if pre is not None and pre["type"] not in ("Whitespace", "Metaspace"):
             raise NotImplementedError(f"tokenizer.json: pre-tokenizer {pre['type']} is not read")
-        self._whitespace = pre is not None
+        self._pre = None if pre is None else pre["type"]
+        if self._pre == "Metaspace":
+            self._metaspace = _metaspace(pre)
         self._decoders = _decoder_steps(spec.get("decoder"))
 
         # added tokens: content → id; normalized ones match after normalization
@@ -281,15 +301,24 @@ class JsonTokenizer:
 
     @classmethod
     def from_dir(cls, path: str) -> "JsonTokenizer":
-        with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
-            spec = json.load(f)
+        """The directory's `tokenizer.json`, else its `tokenizer.model`
+        converted as `AutoTokenizer` converts it for Llama."""
         config: dict = {}
         for name in ("special_tokens_map.json", "tokenizer_config.json"):
             p = os.path.join(path, name)
             if os.path.isfile(p):
                 with open(p, encoding="utf-8") as f:
                     config.update(json.load(f))
-        return cls(spec, config)
+        if os.path.isfile(os.path.join(path, "tokenizer.json")):
+            with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
+                return cls(json.load(f), config)
+        with open(os.path.join(path, "tokenizer.model"), "rb") as f:
+            model = read_sentencepiece(f.read())
+        config = {**LLAMA_DEFAULTS, **config}
+        if config["tokenizer_class"] not in ("LlamaTokenizerFast", "LlamaTokenizer"):
+            raise NotImplementedError(
+                f"tokenizer.model of a {config['tokenizer_class']}: only Llama's conversion is read")
+        return cls(sentencepiece_spec(model, config), config)
 
     def _template(self, spec: Optional[dict]) -> Tuple[List[int], List[int]]:
         if spec is None:
@@ -358,12 +387,14 @@ class JsonTokenizer:
 
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
         ids: List[int] = []
-        for piece, is_added in self._split(text, normalized=False):
+        for start, piece, is_added in self._split(text, normalized=False):
             if is_added:
                 ids.append(self._added[piece])
                 continue
-            for sub, sub_added in self._split(self._normalized(piece), normalized=True):
-                ids.extend([self._added[sub]] if sub_added else self._model(sub))
+            for sub_start, sub, sub_added in self._split(self._normalized(piece), normalized=True):
+                # `first`: the piece starts the text (Metaspace's "first" scheme)
+                ids.extend([self._added[sub]] if sub_added
+                           else self._model(sub, first=start == 0 and sub_start == 0))
         return self._prefix + ids + self._suffix if add_special_tokens else ids
 
     def __call__(self, text: str, add_special_tokens: bool = True, **kw):
@@ -387,6 +418,12 @@ class JsonTokenizer:
                 tokens = _byte_fallback(tokens)
             elif kind == "Fuse":
                 tokens = ["".join(tokens)]
+            elif kind == "Metaspace":
+                # a replacement becomes a space, and is dropped from the
+                # first token unless the scheme never prepends
+                repl, scheme, _ = _metaspace(st)
+                tokens = [t.replace(repl, "" if i == 0 and scheme != "never" else " ")
+                          for i, t in enumerate(tokens)]
             else:
                 tokens = [_strip(t, st["content"], st["start"], st["stop"]) for t in tokens]
         # without a decoder, tokenizers joins the tokens with spaces
@@ -414,19 +451,19 @@ class JsonTokenizer:
         return self._pattern_cache[normalized]
 
     def _split(self, text: str, normalized: bool):
-        """(piece, is_added_token) in order; empty pieces dropped."""
+        """(start, piece, is_added_token) in order; empty pieces dropped."""
         found = self._pattern(normalized)
         if found is None:
-            return [(text, False)] if text else []
+            return [(0, text, False)] if text else []
         pat, toks = found
         out, pos = [], 0
         for m in pat.finditer(text):
             if m.start() > pos:
-                out.append((text[pos:m.start()], False))
-            out.append((toks[m.lastindex - 1], True))
+                out.append((pos, text[pos:m.start()], False))
+            out.append((m.start(), toks[m.lastindex - 1], True))
             pos = m.end()
         if pos < len(text):
-            out.append((text[pos:], False))
+            out.append((pos, text[pos:], False))
         return out
 
     def _normalized(self, text: str) -> str:
@@ -437,8 +474,20 @@ class JsonTokenizer:
                 text = text.replace(a, b)
         return text
 
-    def _model(self, text: str) -> List[int]:
-        words = re.findall(r"\w+|[^\w\s]+", text) if self._whitespace else [text]
+    def _pretokenized(self, text: str, first: bool) -> List[str]:
+        if self._pre == "Whitespace":
+            return re.findall(r"\w+|[^\w\s]+", text)
+        if self._pre == "Metaspace":
+            repl, scheme, split = self._metaspace
+            text = text.replace(" ", repl)
+            if (scheme == "always" or (scheme == "first" and first)) and not text.startswith(repl):
+                text = repl + text
+            # split: each replacement starts a word (merged with the next)
+            return [w for w in re.split(f"(?={re.escape(repl)})", text) if w] if split else [text]
+        return [text]
+
+    def _model(self, text: str, first: bool = False) -> List[int]:
+        words = self._pretokenized(text, first)
         ids: List[int] = []
         for w in words:
             if self._kind == "WordLevel":
@@ -490,18 +539,189 @@ class JsonTokenizer:
         return syms
 
 
+# ------------------------------------------------- SentencePiece tokenizer.model
+
+# what LlamaTokenizerFast assumes where tokenizer_config.json says nothing
+LLAMA_DEFAULTS = {"tokenizer_class": "LlamaTokenizerFast", "bos_token": "<s>", "eos_token": "</s>",
+                  "unk_token": "<unk>", "add_bos_token": True, "add_eos_token": False,
+                  "clean_up_tokenization_spaces": False}
+# sentencepiece_model.proto's SentencePiece.Type values read here (also
+# UNKNOWN 2, UNUSED 5 and BYTE 6, which convert as normal pieces)
+SP_NORMAL, SP_CONTROL, SP_USER_DEFINED = 1, 3, 4
+# TrainerSpec and NormalizerSpec fields read: number → (name, kind)
+_TRAINER_FIELDS = {3: ("model_type", "int"), 35: ("byte_fallback", "bool"), 40: ("unk_id", "int"),
+                   41: ("bos_id", "int"), 42: ("eos_id", "int"), 43: ("pad_id", "int"),
+                   45: ("unk_piece", "str"), 46: ("bos_piece", "str"), 47: ("eos_piece", "str"),
+                   48: ("pad_piece", "str")}
+_NORMALIZER_FIELDS = {1: ("name", "str"), 2: ("precompiled_charsmap", "bytes"),
+                      3: ("add_dummy_prefix", "bool"), 4: ("remove_extra_whitespaces", "bool"),
+                      5: ("escape_whitespaces", "bool")}
+
+
+def _varint(buf: bytes, pos: int) -> Tuple[int, int]:
+    value = shift = 0
+    while True:
+        if pos >= len(buf):
+            raise ValueError("tokenizer.model: a varint runs past the end")
+        b = buf[pos]
+        pos += 1
+        value |= (b & 0x7F) << shift
+        if b < 0x80:
+            return value, pos
+        shift += 7
+
+
+def _fields(buf: bytes):
+    """(field number, wire type, value) of one protobuf message in order:
+    an int for a varint, the bytes otherwise."""
+    pos = 0
+    while pos < len(buf):
+        key, pos = _varint(buf, pos)
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            val, pos = _varint(buf, pos)
+        elif wire == 2:
+            n, pos = _varint(buf, pos)
+            val, pos = buf[pos:pos + n], pos + n
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            val, pos = buf[pos:pos + n], pos + n
+        else:
+            raise ValueError(f"tokenizer.model: wire type {wire} of field {num} is not read")
+        if pos > len(buf):
+            raise ValueError(f"tokenizer.model: field {num} runs past the end")
+        yield num, wire, val
+
+
+def _spec_fields(buf: bytes, table: dict, out: dict) -> dict:
+    for num, wire, val in _fields(buf):
+        if num not in table:
+            continue  # a field the conversion does not read
+        name, kind = table[num]
+        if kind == "str":
+            out[name] = val.decode("utf-8")
+        elif kind == "bytes":
+            out[name] = bytes(val)
+        elif kind == "bool":
+            out[name] = bool(val)
+        else:  # int32: negative values come as 64-bit two's complement
+            out[name] = val - (1 << 64) if val >= 1 << 63 else val
+    return out
+
+
+def read_sentencepiece(data: bytes) -> dict:
+    """SentencePiece's `ModelProto` (a `tokenizer.model` file) →
+    {"pieces": [(piece, score, type)], "trainer_spec": {...},
+    "normalizer_spec": {...}}, decoded from the protobuf wire format with
+    the proto's defaults; unknown fields are skipped."""
+    pieces = []
+    trainer = {"model_type": 1, "byte_fallback": False, "unk_id": 0, "bos_id": 1, "eos_id": 2,
+               "pad_id": -1, "unk_piece": "<unk>", "bos_piece": "<s>", "eos_piece": "</s>",
+               "pad_piece": "<pad>"}
+    normalizer = {"name": "", "precompiled_charsmap": b"", "add_dummy_prefix": True,
+                  "remove_extra_whitespaces": True, "escape_whitespaces": True}
+    for num, wire, val in _fields(data):
+        if wire != 2:
+            continue
+        if num == 1:
+            piece, score, kind = "", 0.0, SP_NORMAL
+            for n, w, v in _fields(val):
+                if n == 1 and w == 2:
+                    piece = v.decode("utf-8")
+                elif n == 2 and w == 5:
+                    score = struct.unpack("<f", v)[0]
+                elif n == 3 and w == 0:
+                    kind = v
+            pieces.append((piece, score, kind))
+        elif num == 2:
+            _spec_fields(val, _TRAINER_FIELDS, trainer)
+        elif num == 3:
+            _spec_fields(val, _NORMALIZER_FIELDS, normalizer)
+    return {"pieces": pieces, "trainer_spec": trainer, "normalizer_spec": normalizer}
+
+
+def _generate_merges(vocab: Dict[str, int], scores: Dict[str, float]) -> List[Tuple[str, str]]:
+    """Merges in transformers' order (`convert_slow_tokenizer.generate_merges`
+    with piece scores): every split of a piece into two pieces of the
+    vocabulary, by id within a piece, then by the merged piece's score,
+    then the lengths of the halves, highest first, stable."""
+    merges = []
+    for merge, score in scores.items():
+        local = [(merge[:i], merge[i:], score) for i in range(1, len(merge))
+                 if merge[:i] in vocab and merge[i:] in vocab]
+        local.sort(key=lambda m: (vocab[m[0]], vocab[m[1]]))
+        merges.extend(local)
+    merges.sort(key=lambda m: (m[2], len(m[0]), len(m[1])), reverse=True)
+    return [(a, b) for a, b, _ in merges]
+
+
+def sentencepiece_spec(model: dict, config: Optional[dict] = None) -> dict:
+    """The `tokenizer.json` spec that transformers' `LlamaConverter` builds
+    from a SentencePiece BPE model (`read_sentencepiece`), with the special
+    tokens `LlamaTokenizerFast` adds on top. `legacy` (default true) and
+    `add_prefix_space` (default true) of the tokenizer config choose the
+    form: legacy takes a `Prepend("▁")` (with a prefix space) and
+    `Replace(" ", "▁")` normalizer, non-legacy a `Metaspace` pre-tokenizer
+    that prepends to the first piece only (or never)."""
+    config = config or {}
+    if model["trainer_spec"]["model_type"] != 2:
+        raise NotImplementedError("tokenizer.model: only a BPE model (Llama's) is converted, "
+                                  f"not model_type {model['trainer_spec']['model_type']}")
+    legacy = config.get("legacy")
+    legacy = True if legacy is None else bool(legacy)
+    prefix = config.get("add_prefix_space")
+    prefix = True if prefix is None else bool(prefix)
+    pieces = model["pieces"]
+    # LlamaConverter.vocab: the first three pieces score 0
+    scores: Dict[str, float] = {}
+    for i, (p, s, _) in enumerate(pieces):
+        scores[p] = 0.0 if i < 3 else s
+    vocab = {p: i for i, (p, _, _) in enumerate(pieces)}
+    added = [{"id": i, "content": p, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": t == SP_CONTROL}
+             for i, (p, _, t) in enumerate(pieces) if t in (SP_CONTROL, SP_USER_DEFINED)]
+    have = {a["content"] for a in added}
+    for key in ("bos_token", "eos_token", "unk_token", "pad_token"):
+        tok = _token_content(config.get(key))
+        if tok is not None and tok in vocab and tok not in have:
+            added.append({"id": vocab[tok], "content": tok, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True})
+            have.add(tok)
+    replace = {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}
+    normalizer = pre = None
+    if legacy:
+        steps = ([{"type": "Prepend", "prepend": "▁"}] if prefix else []) + [replace]
+        normalizer = {"type": "Sequence", "normalizers": steps}
+    else:
+        pre = {"type": "Metaspace", "replacement": "▁", "split": False,
+               "prepend_scheme": "first" if prefix else "never"}
+    decoders = [{"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"}]
+    if prefix:
+        decoders.append({"type": "Strip", "content": " ", "start": 1, "stop": 0})
+    return {
+        "added_tokens": added, "normalizer": normalizer, "pre_tokenizer": pre,
+        "post_processor": None, "decoder": {"type": "Sequence", "decoders": decoders},
+        "model": {"type": "BPE", "dropout": None, "unk_token": model["trainer_spec"]["unk_piece"],
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [list(m) for m in _generate_merges(vocab, scores)]},
+    }
+
+
 def load_tokenizer(path: str | None = None):
-    """The checkpoint's tokenizer directory read from its `tokenizer.json`
-    (`JsonTokenizer`, no `transformers` needed), else (no directory) the
-    ByteTokenizer. A directory without a `tokenizer.json` raises: byte ids
-    would mean nothing to the trained LLM."""
+    """The checkpoint's tokenizer directory read from its `tokenizer.json`,
+    else from SentencePiece's `tokenizer.model` (`JsonTokenizer`; no
+    `transformers`, `sentencepiece` or `protobuf` needed), else (no
+    directory) the ByteTokenizer. A directory with neither file raises:
+    byte ids would mean nothing to the trained LLM."""
     if not (path and os.path.isdir(path)):
         return ByteTokenizer()
-    if not os.path.isfile(os.path.join(path, "tokenizer.json")):
+    if not any(os.path.isfile(os.path.join(path, f)) for f in ("tokenizer.json", "tokenizer.model")):
         have = sorted(os.listdir(path))
         raise FileNotFoundError(
-            f"{path} holds the LLM's tokenizer but no tokenizer.json (it holds {have}); the "
-            "port reads HF's tokenizer.json only, not SentencePiece's tokenizer.model")
+            f"{path} holds the LLM's tokenizer but neither tokenizer.json nor tokenizer.model "
+            f"(it holds {have})")
     return JsonTokenizer.from_dir(path)
 
 

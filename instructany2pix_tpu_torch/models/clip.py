@@ -1,10 +1,15 @@
 """CLIP text towers (SDXL's CLIP ViT-L/14 and OpenCLIP bigG, the prior's
-ViT-H), counterpart of the JAX package's `models/clip.py` text half.
+ViT-H) and the CLIP vision tower (ViT-H/14, the IP-Adapter's image
+encoder), counterpart of the JAX package's `models/clip.py`.
 
-`CLIPText` holds the weights under the JAX tree's names; `text_apply`
-returns the same dict: every hidden state, the final-LN output, the pooled
-EOS state and, when the config has one, the projected `text_embeds`. The
-vision tower comes with the slice that needs it.
+`CLIPText` and `CLIPVision` hold the weights under the JAX tree's names;
+`text_apply` returns the same dict: every hidden state, the final-LN
+output, the pooled EOS state and, when the config has one, the projected
+`text_embeds`; `vision_apply` every hidden state, the last one, the
+post-LN CLS state and the projected `image_embeds`. The text towers take
+plain attention (causal, often masked); the vision tower's unmasked
+attention goes through the router, so K1 serves it on the card (ViT-H/14
+at 224: 257 tokens at head_dim 80).
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
@@ -71,6 +77,34 @@ class CLIPTextConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    hidden_size: int = 1280
+    intermediate_size: int = 5120
+    num_layers: int = 32
+    num_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    projection_dim: Optional[int] = 1024
+    hidden_act: str = "gelu"  # ViT-H/14 (OpenCLIP) uses the exact gelu
+
+    @staticmethod
+    def vit_h() -> "CLIPVisionConfig":
+        return CLIPVisionConfig()
+
+    @staticmethod
+    def tiny() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(
+            hidden_size=32,
+            intermediate_size=64,
+            num_layers=2,
+            num_heads=4,
+            image_size=28,
+            patch_size=14,
+            projection_dim=16,
+        )
+
+
 def _act(name):
     return {"quick_gelu": L.quick_gelu, "gelu": L.gelu}[name]
 
@@ -88,14 +122,14 @@ class CLIPLayer(nn.Module):
         self.fc2 = nn.Linear(inter, dim)
 
 
-def _layer(p: CLIPLayer, x, heads, act, causal, mask=None):
+def _layer(p: CLIPLayer, x, heads, act, causal, mask=None, impl="xla"):
     b, s, d = x.shape
     hd = d // heads
     h = L.layer_norm(p.ln1, x)
     q = L.linear(p.q, h).reshape(b, s, heads, hd)
     k = L.linear(p.k, h).reshape(b, s, heads, hd)
     v = L.linear(p.v, h).reshape(b, s, heads, hd)
-    o = dot_product_attention(q, k, v, causal=causal, mask=mask, impl="xla")
+    o = dot_product_attention(q, k, v, causal=causal, mask=mask, impl=impl)
     x = x + L.linear(p.o, o.reshape(b, s, d))
     h = L.layer_norm(p.ln2, x)
     return x + L.linear(p.fc2, act(L.linear(p.fc1, h)))
@@ -148,7 +182,86 @@ def text_apply(
     return out
 
 
+# ----------------------------------------------------------------- vision
+
+
+class CLIPVision(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, p = cfg.hidden_size, cfg.patch_size
+        self.patch_embedding = nn.Conv2d(3, d, p, stride=p, bias=False)
+        self.class_embedding = nn.Parameter(torch.zeros(d))
+        self.position_embedding = nn.Embedding((cfg.image_size // p) ** 2 + 1, d)
+        self.pre_ln = nn.LayerNorm(d)
+        self.post_ln = nn.LayerNorm(d)
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", CLIPLayer(d, cfg.intermediate_size))
+        if cfg.projection_dim:
+            self.visual_projection = nn.Linear(d, cfg.projection_dim, bias=False)
+
+    def forward(self, pixels):
+        return vision_apply(self, pixels, self.cfg)
+
+
+def vision_apply(params: CLIPVision, pixels: torch.Tensor, cfg: CLIPVisionConfig, impl="auto"):
+    """pixels (B, H, W, 3), CLIP-normalized → `hidden_states` (the
+    embeddings after the pre-LN and every layer output),
+    `last_hidden_state`, `pooled` (the CLS state after the post-LN) and,
+    with a projection, `image_embeds`. `impl="xla"` forces the plain
+    attention (the card's check of K1 inside the tower)."""
+    w = params.patch_embedding.weight
+    x = pixels.to(device=w.device, dtype=w.dtype).permute(0, 3, 1, 2)
+    x = F.conv2d(x, w, stride=cfg.patch_size)  # (B, D, h, w)
+    b = x.shape[0]
+    x = x.flatten(2).transpose(1, 2)  # row-major patches, as the JAX NHWC reshape
+    cls = params.class_embedding.to(x.dtype).expand(b, 1, -1)
+    x = torch.cat([cls, x], dim=1)
+    x = x + L.embedding(params.position_embedding, torch.arange(x.shape[1], device=x.device))[None]
+    x = L.layer_norm(params.pre_ln, x)
+    act = _act(cfg.hidden_act)
+    hidden = [x]
+    for i in range(cfg.num_layers):
+        x = _layer(getattr(params, f"layer_{i}"), x, cfg.num_heads, act, causal=False, impl=impl)
+        hidden.append(x)
+    pooled = L.layer_norm(params.post_ln, x[:, 0])
+    out = {"hidden_states": tuple(hidden), "last_hidden_state": x, "pooled": pooled}
+    if cfg.projection_dim:
+        out["image_embeds"] = L.linear(params.visual_projection, pooled)
+    return out
+
+
 # ------------------------------------------------------------ checkpoints
+
+
+def vision_keymap() -> KeyMap:
+    """HF `CLIPVisionModelWithProjection` keys (the IP-Adapter's
+    `image_encoder/`) ↔ `CLIPVision`: the rules of the JAX
+    `convert_vision_from_hf`. HF's patch convolution is OIHW, as the port's."""
+    lay = "vision_model.encoder.layers.{i}"
+    rules = [
+        Rule("vision_model.embeddings.patch_embedding.weight", "patch_embedding.weight"),
+        Rule("vision_model.embeddings.class_embedding", "class_embedding"),
+        Rule("vision_model.embeddings.position_embedding.weight", "position_embedding.weight"),
+        Rule("vision_model.pre_layrnorm.weight", "pre_ln.weight"),
+        Rule("vision_model.pre_layrnorm.bias", "pre_ln.bias"),
+        Rule("vision_model.post_layernorm.weight", "post_ln.weight"),
+        Rule("vision_model.post_layernorm.bias", "post_ln.bias"),
+        Rule("visual_projection.weight", "visual_projection.weight"),
+    ]
+    rules += _layer_rules(lay)
+    ignore = [(r"vision_model\.embeddings\.position_ids", "position ids, a buffer of 0..n-1")]
+    return KeyMap(rules, ignore)
+
+
+def _layer_rules(lay: str):
+    rules = []
+    for ref, port in (("layer_norm1", "ln1"), ("layer_norm2", "ln2"), ("self_attn.q_proj", "q"),
+                      ("self_attn.k_proj", "k"), ("self_attn.v_proj", "v"),
+                      ("self_attn.out_proj", "o"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+        for leaf in ("weight", "bias"):
+            rules.append(Rule(f"{lay}.{ref}.{leaf}", "layer_{i}." + f"{port}.{leaf}"))
+    return rules
 
 
 def text_keymap() -> KeyMap:
@@ -160,11 +273,6 @@ def text_keymap() -> KeyMap:
         Rule("text_model.final_layer_norm.weight", "final_ln.weight"),
         Rule("text_model.final_layer_norm.bias", "final_ln.bias"),
         Rule("text_projection.weight", "text_projection.weight"),
-    ]
-    for ref, port in (("layer_norm1", "ln1"), ("layer_norm2", "ln2"), ("self_attn.q_proj", "q"),
-                      ("self_attn.k_proj", "k"), ("self_attn.v_proj", "v"),
-                      ("self_attn.out_proj", "o"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
-        for leaf in ("weight", "bias"):
-            rules.append(Rule(f"{lay}.{ref}.{leaf}", "layer_{i}." + f"{port}.{leaf}"))
+    ] + _layer_rules(lay)
     ignore = [(r"text_model\.embeddings\.position_ids", "position ids, a buffer of 0..n-1")]
     return KeyMap(rules, ignore)

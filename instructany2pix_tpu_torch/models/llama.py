@@ -281,9 +281,15 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[KVCache] = None,
     prefix_pad=None,
+    layers: Optional[int] = None,
 ):
     """Full forward, or with `cache` an incremental one that appends this
     chunk at `cache.length` (prefill or one decode step).
+
+    `layers` runs only the first N decoder layers, through the same final
+    norm and `lm_head`: the early-exit draft of self-speculative decoding
+    (`llm/speculative.py`). Its cache may hold just those layers
+    (`KVCache(cache.k[:N], cache.v[:N], length)`, views written in place).
 
     Returns a dict: `logits` (B, S, V), `hidden` (the raw residual stream)
     and `hidden_norm` (after the final norm, HF's last hidden state), plus
@@ -310,7 +316,12 @@ def forward(
         kv_len = prefix_lengths(mask.to(dev))
         if kv_len is not None:
             mask = None
-    for i in range(cfg.num_layers):
+    n_layers = cfg.num_layers if layers is None else layers
+    if not 0 < n_layers <= cfg.num_layers:
+        raise ValueError(f"layers={layers} of a {cfg.num_layers}-layer model")
+    if cache is not None and cache.k.shape[0] < n_layers:
+        raise ValueError(f"a cache of {cache.k.shape[0]} layers for {n_layers}")
+    for i in range(n_layers):
         layer = getattr(params, f"layer_{i}")
         if cache is not None:
             x = _block(layer, x, cfg, mask, rope_cs, (cache.k[i], cache.v[i]), cache.length)

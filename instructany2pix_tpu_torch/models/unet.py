@@ -143,7 +143,22 @@ class Attention(nn.Module):
             self.to_v_ip = nn.Linear(ctx_dim, dim, bias=False)
 
 
-def _attn(p: Attention, x, ctx, heads, ip_tokens=None, ip_scale=1.0, kv_pre=None):
+def _ip_attn(q, k_ip, v_ip, taps, tap_key):
+    """The IP half of a cross-attention. With `taps` it runs as explicit
+    float32 softmax(q·k_ipᵀ/√hd), the probabilities cast to v's dtype and
+    applied to v_ip, and records them (B, heads, S, n_ip) under `tap_key`:
+    the map is the attention that was applied."""
+    b, s, heads, hd = q.shape
+    if taps is None:
+        return dot_product_attention(q, k_ip, v_ip).reshape(b, s, heads * hd)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k_ip).float()
+    probs = torch.softmax(logits / float(hd) ** 0.5, dim=-1)
+    taps[tap_key] = probs
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v_ip.dtype), v_ip).reshape(b, s, heads * hd)
+
+
+def _attn(p: Attention, x, ctx, heads, ip_tokens=None, ip_scale=1.0, kv_pre=None, taps=None,
+          tap_key=None):
     b, s, d = x.shape
     hd = d // heads
     q = L.linear(p.to_q, x).reshape(b, s, heads, hd)
@@ -154,12 +169,11 @@ def _attn(p: Attention, x, ctx, heads, ip_tokens=None, ip_scale=1.0, kv_pre=None
         v = L.linear(p.to_v, ctx).reshape(b, -1, heads, hd)
     o = dot_product_attention(q, k, v).reshape(b, s, d)
     if kv_pre is not None and "k_ip" in kv_pre:
-        o_ip = dot_product_attention(q, kv_pre["k_ip"], kv_pre["v_ip"]).reshape(b, s, d)
-        o = o + ip_scale * o_ip
+        o = o + ip_scale * _ip_attn(q, kv_pre["k_ip"], kv_pre["v_ip"], taps, tap_key)
     elif ip_tokens is not None and hasattr(p, "to_k_ip"):
         k_ip = L.linear(p.to_k_ip, ip_tokens).reshape(b, -1, heads, hd)
         v_ip = L.linear(p.to_v_ip, ip_tokens).reshape(b, -1, heads, hd)
-        o = o + ip_scale * dot_product_attention(q, k_ip, v_ip).reshape(b, s, d)
+        o = o + ip_scale * _ip_attn(q, k_ip, v_ip, taps, tap_key)
     return L.linear(p.to_out, o)
 
 
@@ -175,11 +189,12 @@ class TBlock(nn.Module):
         self.ff_out = nn.Linear(dim * 4, dim)
 
 
-def _tblock(p: TBlock, x, ctx, heads, ip_tokens, ip_scale, kv_pre=None):
+def _tblock(p: TBlock, x, ctx, heads, ip_tokens, ip_scale, kv_pre=None, taps=None, tap_key=None):
     h = L.layer_norm(p.norm1, x)
     x = x + _attn(p.attn1, h, h, heads)
     h = L.layer_norm(p.norm2, x)
-    x = x + _attn(p.attn2, h, ctx, heads, ip_tokens, ip_scale, kv_pre=kv_pre)
+    x = x + _attn(p.attn2, h, ctx, heads, ip_tokens, ip_scale, kv_pre=kv_pre, taps=taps,
+                  tap_key=tap_key)
     h = L.layer_norm(p.norm3, x)
     a, g = L.linear(p.ff_in, h).chunk(2, dim=-1)
     return x + L.linear(p.ff_out, a * L.gelu(g))
@@ -197,7 +212,8 @@ class Transformer2D(nn.Module):
         self.depth = depth
 
 
-def _transformer(p: Transformer2D, x, ctx, heads, ip_tokens, ip_scale, kv_tree=None):
+def _transformer(p: Transformer2D, x, ctx, heads, ip_tokens, ip_scale, kv_tree=None, taps=None,
+                 tap_prefix=""):
     b, hh, ww, c = x.shape
     res = x
     h = L.group_norm(p.norm, x)
@@ -210,6 +226,7 @@ def _transformer(p: Transformer2D, x, ctx, heads, ip_tokens, ip_scale, kv_tree=N
         h = _tblock(
             getattr(p, f"block_{i}"), h, ctx, heads, ip_tokens, ip_scale,
             kv_pre=kv_tree[f"block_{i}"] if kv_tree is not None else None,
+            taps=taps, tap_key=f"{tap_prefix}.block_{i}",
         )
     if isinstance(p.proj_out, nn.Linear):
         h = L.linear(p.proj_out, h).reshape(b, hh, ww, c)
@@ -351,9 +368,14 @@ def apply(
     ip_tokens: Optional[torch.Tensor] = None,  # (B, n_ip, cross_attention_dim)
     ip_scale: float = 1.0,
     cross_kv: Optional[dict] = None,  # precompute_cross_kv output
-) -> torch.Tensor:
+    capture_ip_attn: bool = False,
+):
     """ε prediction (B, H, W, out_channels) in the weights' dtype. When
-    `cross_kv` carries k_ip/v_ip, `ip_tokens` is unused."""
+    `cross_kv` carries k_ip/v_ip, `ip_tokens` is unused. With
+    `capture_ip_attn` returns `(eps, taps)`: every IP cross-attention's
+    probabilities (B, heads, S_pixels, n_ip) under its layer path
+    (`down_1.attn_0.block_0`, `mid.attn.block_0`, ...), as the JAX tap."""
+    taps: Optional[dict] = {} if capture_ip_attn else None
     dtype = params.conv_in.weight.dtype
     dev = params.conv_in.weight.device
     sample = sample.to(device=dev, dtype=dtype)
@@ -392,6 +414,7 @@ def apply(
                 h = _transformer(
                     blk[f"attn_{j}"], h, ctx, cfg.num_attention_heads[i], ip_tokens, ip_scale,
                     kv_tree=cross_kv[f"down_{i}"][f"attn_{j}"] if cross_kv else None,
+                    taps=taps, tap_prefix=f"down_{i}.attn_{j}",
                 )
             skips.append(h)
         if "down" in blk:
@@ -403,7 +426,7 @@ def apply(
     h = _resnet(mid["res_0"], h, temb)
     h = _transformer(
         mid["attn"], h, ctx, cfg.num_attention_heads[-1], ip_tokens, ip_scale,
-        kv_tree=cross_kv["mid"] if cross_kv else None,
+        kv_tree=cross_kv["mid"] if cross_kv else None, taps=taps, tap_prefix="mid.attn",
     )
     h = _resnet(mid["res_1"], h, temb)
 
@@ -417,9 +440,11 @@ def apply(
                 h = _transformer(
                     blk[f"attn_{j}"], h, ctx, rev_heads[i], ip_tokens, ip_scale,
                     kv_tree=cross_kv[f"up_{i}"][f"attn_{j}"] if cross_kv else None,
+                    taps=taps, tap_prefix=f"up_{i}.attn_{j}",
                 )
         if "up" in blk:
             h = L.conv2d(blk["up"], L.upsample2x_nearest(h))
 
     h = L.group_norm(params.norm_out, h, silu=True)
-    return L.conv2d(params.conv_out, h)
+    out = L.conv2d(params.conv_out, h)
+    return (out, taps) if capture_ip_attn else out

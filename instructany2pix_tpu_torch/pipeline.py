@@ -33,9 +33,13 @@ grounder (`grounding.gdino.make_grounder`) in their place.
 The inpaint UNet is built when `cfg.inpaint_unet` has 9 input channels;
 otherwise the base UNet serves it (one module, no copy).
 
-Not ported yet, and refused with `NotImplementedError`: speculative
-decode (`llm_speculative_layers > 0`) and the `debug=True` attention-map
-dict.
+`cfg.llm_speculative_layers > 0` decodes greedily by exact self-speculative
+decoding (`llm/speculative.py`, a draft of that many layers, 4 tokens a
+round), as the JAX pipeline does; the batched server keeps its plain
+decode. `__call__(debug=True)` runs one more conditioned UNet forward at
+the final latent with the IP attention tap on and returns the JAX
+pipeline's dict (attention maps, caption, latents, annotations, ...) in
+place of "SUCCESS!".
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from .grounding import lib as grounding_lib
 from .llm import constants as C
 from .llm import generate as gen_lib
 from .llm import multimodal as mm_lib
+from .llm import speculative as spec_lib
 from .llm.clip_tokenizer import load_clip_tokenizer
 from .llm.conversation import conv_templates
 from .llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
@@ -104,7 +109,9 @@ class PipelineConfig:
     imagebind_audio: imagebind_lib.ViTConfig = imagebind_lib.ViTConfig.imagebind_audio()
     image_size: int = 1024
     embed_norm: float = 20.0
-    llm_speculative_layers: int = 0  # > 0 refused until speculative decode is ported
+    # > 0: exact self-speculative greedy decode with an early-exit draft of
+    # that many layers (llm/speculative.py); the server keeps plain decode
+    llm_speculative_layers: int = 0
     # the grounding models `build_segmentator` loads from <ckpt>/gdino
     # (None selects Swin-T / ViT-H)
     gdino: Optional[Any] = None
@@ -262,13 +269,12 @@ class InstructAny2PixPipeline:
             # the base UNet serves inpainting, as the reference builds its
             # inpaint pipeline from the base components
             self.cfg = dataclasses.replace(self.cfg, inpaint_unet=self.cfg.unet)
-        if self.cfg.llm_speculative_layers > 0:
-            raise NotImplementedError(
-                "speculative decode is not ported yet (ROADMAP Queue 1, item 5)")
         self.policy = policy
         self.schedule = Schedule.create(SchedulerConfig(), self.device)
         self.cache = None
         self.last_generate: Optional[gen_lib.GenerateResult] = None
+        # tokens emitted by each round of the last speculative decode
+        self.last_rounds: List[int] = []
         # host seconds per stage, recorded (after a device sync) when a dict
         self.stage_times: Optional[Dict[str, float]] = None
 
@@ -436,7 +442,8 @@ class InstructAny2PixPipeline:
         or (None, None, caption, None, None) when the LLM emitted no
         generation tokens. Samples at temperature 0.3 from `generator`
         (one seeded at random without it), up to 100 tokens, stopping at
-        EOS."""
+        EOS; with `cfg.llm_speculative_layers > 0` decodes greedily by
+        self-speculative decoding instead."""
         if use_cache and self.cache is not None:
             return self.cache
         with self._stage("imagebind_encode"):
@@ -446,11 +453,19 @@ class InstructAny2PixPipeline:
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(int(np.random.randint(0, 2**31)))
         with self._stage("llm_generate"):
-            result = gen_lib.generate(
-                self.models["llm"].llama, self.cfg.llm.llama, inputs_embeds, generator,
-                max_new_tokens=100, temperature=0.3, eos_id=eos_id, bucket=64,
-                dynamic_stop=True,
-            )
+            if self.cfg.llm_speculative_layers > 0:
+                self.last_rounds = []
+                result = spec_lib.generate_speculative(
+                    self.models["llm"].llama, self.cfg.llm.llama, inputs_embeds,
+                    max_new_tokens=100, eos_id=eos_id,
+                    draft_layers=self.cfg.llm_speculative_layers, rounds=self.last_rounds,
+                )
+            else:
+                result = gen_lib.generate(
+                    self.models["llm"].llama, self.cfg.llm.llama, inputs_embeds, generator,
+                    max_new_tokens=100, temperature=0.3, eos_id=eos_id, bucket=64,
+                    dynamic_stop=True,
+                )
         self.last_generate = result
         n_out = min(int(result.done_at[0]) + 1, result.tokens.shape[1])
         out = self._postprocess_llm(
@@ -607,11 +622,13 @@ class InstructAny2PixPipeline:
         is repainted into the refined image (IP-Adapter local mode).
         `diffusion_mode="ipa_lcm"` denoises in 4 LCM steps at guidance 1.0
         (it needs LCM-distilled UNet weights for quality); `lcm_noise`
-        (4, 1, h, w, 4) injects their draws."""
-        if debug:
-            raise NotImplementedError(
-                "debug=True needs the UNet's capture_ip_attn tap, not ported yet "
-                "(ROADMAP Queue 1, item 3)")
+        (4, 1, h, w, 4) injects their draws. `debug=True` returns, in place
+        of "SUCCESS!", the JAX pipeline's dict: `attn_maps` (n_ip, H, W)
+        from one more conditioned UNet forward at the final latent with the
+        IP attention tap on (timestep 0; `stage_times["debug_tap"]`),
+        `output_caption`, `latent_inv`, `img_base`, `latent_la`,
+        `base_embed`, `annotations`, `subjec_data` (the reference's key) and
+        `y` (the prior's output over its norm); the images are the same."""
         c = self.cfg
         seed = seed if seed is not None else int(np.random.randint(0, 2**31))
         gen = torch.Generator(self.device).manual_seed(seed)
@@ -687,6 +704,7 @@ class InstructAny2PixPipeline:
             refined = self._refine(caption, non_refined, gen, refinement, refiner_vae_noise,
                                    refiner_noise)
 
+        annotations, subjects = None, []
         if subject_strength > 0 and len(extra_data["extra_idx"]) > 0:
             subjects = [
                 {"name": k, "embed": v}
@@ -694,13 +712,30 @@ class InstructAny2PixPipeline:
                                    extra_data["extra_idx"])
                 if mm_data[int(i)]["type"] == "image"
             ]
-            refined, _ = grounding_lib.subject_consistency(
+            refined, annotations = grounding_lib.subject_consistency(
                 subjects, caption, refined, self._timed("segmentation", self.segmentor),
                 self._timed("grounding", self.grounder),
                 self._make_inpaint_fn(gen, subject_strength, subject_noise), subject_strength,
                 device=self.device,
             )
-        return non_refined, refined, "SUCCESS!"
+        if not debug:
+            return non_refined, refined, "SUCCESS!"
+        with self._stage("debug_tap"):
+            # the reference's attention-map tap: one more conditioned UNet
+            # forward at the final latent, IP probabilities captured per layer
+            _, taps = unet_lib.apply(
+                self.models["unet"], lat, torch.zeros((1,), dtype=torch.long), ctx_p, c.unet,
+                pooled_text=pooled_p, time_ids=tid, ip_tokens=ip_cond, ip_scale=scale,
+                capture_ip_attn=True,
+            )
+            attn_maps = ipa.aggregate_attn_maps(taps, (c.image_size, c.image_size), batch_index=0)
+        return non_refined, refined, dict(
+            attn_maps=attn_maps, output_caption=caption, latent_inv=latent_inv,
+            img_base=img_base, latent_la=latent_la, base_embed=base_embed,
+            annotations=annotations,
+            subjec_data=subjects,  # the reference's key name
+            y=y / (torch.linalg.vector_norm(y) + 1e-9),
+        )
 
     def _timed(self, stage: str, fn):
         def call(*args, **kwargs):

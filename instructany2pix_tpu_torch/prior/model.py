@@ -6,19 +6,22 @@ The pipeline runs `generate_diffusion(..., no_diffusion=True)`: one
 single-step x0-space CFG, x0_u + g·(x0_c − x0_u), over the assembled
 prompt [src_type, SOS|imagebind|EOS, SOS|text|EOS, SOS|score|EOS] (the
 reference's key-list quirk keeps the noise level and target type out of
-it; see the JAX module). The DDPM sampling loop (`no_diffusion=False`)
-is not ported yet.
+it; see the JAX module). `no_diffusion=False` runs the DDPM sampling loop:
+the noisy latents join the prompt, GPT-2 predicts the sample, which is
+turned into ε for CFG and an ancestral DDPM step. `generate` and
+`generate_partial` are the plain autoregressive generations.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..core.checkpoint import KeyMap, Rule
+from ..diffusion.schedulers import Schedule, SchedulerConfig
 from ..models import gpt2
 from ..models import layers as L
 
@@ -167,13 +170,17 @@ def generate_diffusion(
     score: float = 6.8,
     negative_score: float = 2.0,
     no_diffusion: bool = False,
+    schedule: Optional[Schedule] = None,
+    generator: Optional[torch.Generator] = None,
+    latents: Optional[torch.Tensor] = None,
+    noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Refined embedding (B, sequence_gen_length, output_dim)."""
-    if not no_diffusion:
-        raise NotImplementedError(
-            "the prior's DDPM sampling path is not ported yet (ROADMAP Queue 1, item 4); "
-            "the pipeline runs no_diffusion=True"
-        )
+    """Refined embedding (B, sequence_gen_length, output_dim).
+
+    The DDPM path starts from `latents` (B, sequence_gen_length, embed_dim)
+    and takes `noise[i]` (the same shape) as step i's normal draw; without
+    them both are drawn from `generator`, the start latent first, as the
+    JAX function draws from its key chain."""
     dev = params.sos.weight.device
     src = src.to(dev)
     b = src.shape[0]
@@ -192,10 +199,68 @@ def generate_diffusion(
         "crossattn_clip": (dup(text_hidden, text_hidden), dup(text_mask, text_mask)),
         "score": dup(score_emb, neg_score_emb),
     }
+    if no_diffusion:
+        # one step at t = 0: the noisy seed cancels, leaving x0-space CFG
+        emb, mask = assemble_sequence(params, cfg, cond)
+        out = _ar_decode(params, cfg, emb, mask, cfg.sequence_gen_length)
+        x0_c, x0_u = out.chunk(2, dim=0)
+        return _project_out(params, x0_u + guidance_scale * (x0_c - x0_u))
+
+    sched = schedule or Schedule.create(SchedulerConfig(), dev)
+    shape = (b, cfg.sequence_gen_length, cfg.embed_dim)
+    if noise is not None and len(noise) != num_inference_steps:
+        raise ValueError(f"{len(noise)} noise draws for {num_inference_steps} steps")
+
+    def draw(given):
+        if given is None:
+            return torch.randn(shape, generator=generator, device=dev)
+        t = torch.as_tensor(given, dtype=torch.float32, device=dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"injected prior noise {tuple(t.shape)} != {shape}")
+        return t
+
+    lat = draw(latents)
+    ts = sched.ddpm_timesteps(num_inference_steps).tolist()
+    ratio = sched.cfg.num_train_timesteps // num_inference_steps
+    for i, t in enumerate(ts):
+        cond["noisy_inputs"] = torch.cat([lat, lat], dim=0)
+        emb, mask = assemble_sequence(params, cfg, cond)
+        out = _ar_decode(params, cfg, emb, mask, cfg.sequence_gen_length).float()
+        # GPT-2 predicts the sample; ε by the reference's fixed formula,
+        # whatever the scheduler's prediction type
+        a = sched.alpha_bar(torch.full((2 * b,), t, device=dev)).reshape(-1, 1, 1)
+        eps = (cond["noisy_inputs"] - torch.sqrt(a) * out) / torch.sqrt(1.0 - a)
+        eps_c, eps_u = eps.chunk(2, dim=0)
+        lat = sched.ddpm_step(
+            eps_u + guidance_scale * (eps_c - eps_u), torch.full((b,), t, device=dev), lat,
+            draw(noise[i] if noise is not None else None),
+            t_prev=torch.full((b,), t - ratio, device=dev),
+        )
+    if hasattr(params, "output_proj"):
+        lat = lat.to(params.output_proj.weight.dtype)
+    return _project_out(params, lat)
+
+
+@torch.inference_mode()
+def generate(params: Prior, cfg: PriorConfig, cond: Dict) -> torch.Tensor:
+    """Plain autoregressive generation, no diffusion: the conditioning
+    prompt, then `sequence_gen_length` continuous tokens."""
     emb, mask = assemble_sequence(params, cfg, cond)
-    out = _ar_decode(params, cfg, emb, mask, cfg.sequence_gen_length)
-    x0_c, x0_u = out.chunk(2, dim=0)
-    return _project_out(params, x0_u + guidance_scale * (x0_c - x0_u))
+    return _project_out(params, _ar_decode(params, cfg, emb, mask, cfg.sequence_gen_length))
+
+
+@torch.inference_mode()
+def generate_partial(params: Prior, cfg: PriorConfig, cond: Dict, target: torch.Tensor) -> torch.Tensor:
+    """In-context partial generation: the first quarter of `target` (B, T,
+    embed_dim) after the prompt, the rest decoded."""
+    emb, mask = assemble_sequence(params, cfg, cond)
+    t = target.shape[1]
+    prefix = target[:, : t // 4].to(device=emb.device, dtype=emb.dtype)
+    emb = torch.cat([emb, prefix], dim=1)
+    mask = torch.cat([mask, torch.ones((mask.shape[0], prefix.shape[1]), dtype=mask.dtype,
+                                       device=mask.device)], dim=1)
+    out = _ar_decode(params, cfg, emb, mask, max(3 * t // 4, 1))
+    return _project_out(params, torch.cat([prefix, out], dim=1))
 
 
 # ------------------------------------------------------------ checkpoints

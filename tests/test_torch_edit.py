@@ -161,17 +161,29 @@ def test_ipa_lcm_edit_matches_jax(pipes, media, seed, refinement, steps):
 
 @pytest.mark.parametrize("kw", [{"debug": True}])
 def test_unported_options_raise(pipes, media, kw):
+    """`debug=True` was refused until the UNet's IP attention tap was
+    ported; it now runs and returns the JAX pipeline's dict in place of
+    "SUCCESS!" (held against JAX in tests/test_torch_debug.py)."""
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp("edit", media, use_cache=True, **kw)
+    _seed_cache(tp, media, np.asarray)
+    _, _, msg = tp("edit", media, use_cache=True, num_inference_steps=2, refinement=0.0, seed=0,
+                   **kw)
+    tp.cache = None
+    assert isinstance(msg, dict) and tuple(msg["attn_maps"].shape) == (4, 64, 64)
 
 
 def test_speculative_decode_is_refused():
+    """`llm_speculative_layers > 0` was refused until speculative decode was
+    ported; the pipeline now builds and `forward_llm` decodes in draft and
+    verify rounds (held against JAX in tests/test_torch_speculative.py)."""
     import dataclasses
 
     cfg = dataclasses.replace(tpl.PipelineConfig.tiny(), llm_speculative_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.InstructAny2PixPipeline(cfg, device="cpu", policy=FP32)
+    pipe = tpl.InstructAny2PixPipeline(cfg, device="cpu", policy=FP32)
+    out = pipe.forward_llm("describe a cat", [])
+    gen = pipe.last_generate
+    n = min(int(gen.done_at[0]) + 1, gen.tokens.shape[1])
+    assert isinstance(out[2], str) and pipe.last_rounds and sum(pipe.last_rounds) == n - 1
 
 
 def test_tokenizers_are_looked_up_where_the_jax_pipeline_looks(pipes, tmp_path, monkeypatch):

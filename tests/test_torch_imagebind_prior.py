@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from instructany2pix_tpu.diffusion import img2img as ji2i
 from instructany2pix_tpu.diffusion.schedulers import Schedule as JSchedule
@@ -92,8 +93,10 @@ def test_prior_generate_no_diffusion_matches_jax():
     out = tprior.generate_diffusion(port, tcfg, tprior.MODALITY.VIDEO, tprior.MODALITY.IMAGE,
                                     t(src), t(th), t(tm), **kw)
     assert_close(out, ref, TOL, 5, rel=True, what="prior")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprior.generate_diffusion(port, tcfg, 3, 0, t(src), t(th), t(tm))
+    # the DDPM path runs too (held against JAX in test_torch_prior_ddpm.py)
+    ddpm = tprior.generate_diffusion(port, tcfg, 3, 0, t(src), t(th), t(tm), num_inference_steps=2,
+                                     generator=torch.Generator().manual_seed(0))
+    assert ddpm.shape == out.shape and bool(torch.isfinite(ddpm).all())
 
 
 @pytest.mark.parametrize("strength", [0.5, 0.0])

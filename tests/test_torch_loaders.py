@@ -41,6 +41,8 @@ from instructany2pix_tpu_torch.ops import quant as Q
 
 from ckpt_fixtures import build_checkpoint_tree
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_port_helpers import (MASKED_TOKENIZER_PACKAGES, stub_sentencepiece,  # noqa: F401
+                                write_sentencepiece_model)
 
 UINT8_TOL = 1
 UNET_F32_TOL = 1e-3  # of the largest output, against float64
@@ -518,12 +520,15 @@ def test_aliases_and_ignored_keys(tree):
 # ---------------------------------------------------------------- tokenizer
 
 
-def test_tokenizer_directory_needs_transformers(tree, tmp_path, monkeypatch):
+def test_tokenizer_directory_needs_transformers(tree, tmp_path, monkeypatch, stub_sentencepiece):
     """The tree's tokenizer directory is read from its tokenizer.json with
     `transformers` masked, to the ids `AutoTokenizer` gives; a directory
-    without tokenizer.json (SentencePiece's tokenizer.model alone) raises
-    and names the file; no directory gives the byte tokenizer, as in the
-    JAX package."""
+    that holds only SentencePiece's tokenizer.model boots too, with
+    `transformers`, `tokenizers`, `sentencepiece` and `protobuf` masked, to
+    the ids of `AutoTokenizer`'s conversion (`LlamaConverter`); a directory
+    with neither file raises and names both; no directory gives the byte
+    tokenizer, as in the JAX package."""
+    import json
     import sys
 
     from instructany2pix_tpu.llm import tokenizer as jtok
@@ -532,16 +537,25 @@ def test_tokenizer_directory_needs_transformers(tree, tmp_path, monkeypatch):
     tok_dir = os.path.join(root, LLM, "tokenizer")
     hf = jtok.load_tokenizer(tok_dir)
     assert not isinstance(hf, jtok.ByteTokenizer)
-    monkeypatch.setitem(sys.modules, "transformers", None)
-    monkeypatch.setitem(sys.modules, "tokenizers", None)
-    port = ttok.load_tokenizer(tok_dir)
-    assert jtok.initialize_vision_tokenizer(hf) == ttok.initialize_vision_tokenizer(port)
     text = "USER: add <video> to the photo of a cat . ASSISTANT: [a dog] <im_gen><video></s>"
-    assert port(text).input_ids == hf(text).input_ids
     sp_only = tmp_path / "tokenizer"
     sp_only.mkdir()
-    (sp_only / "tokenizer.model").write_bytes(b"\x00")
-    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+    write_sentencepiece_model(sp_only / "tokenizer.model", [text, "a photo of a cat and a dog"])
+    (sp_only / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "LlamaTokenizer", "legacy": False}))
+    hf_sp = jtok.load_tokenizer(str(sp_only))
+    assert type(hf_sp).__name__ == "LlamaTokenizerFast"
+    with monkeypatch.context() as m:
+        for pkg in MASKED_TOKENIZER_PACKAGES:
+            m.setitem(sys.modules, pkg, None)
+        port = ttok.load_tokenizer(tok_dir)
+        port_sp = ttok.load_tokenizer(str(sp_only))
+    for p, h in ((port, hf), (port_sp, hf_sp)):
+        assert jtok.initialize_vision_tokenizer(h) == ttok.initialize_vision_tokenizer(p)
+        assert p(text).input_ids == h(text).input_ids
+        assert p.decode(h(text).input_ids) == h.decode(h(text).input_ids)
+    (sp_only / "tokenizer.model").unlink()
+    with pytest.raises(FileNotFoundError, match="neither tokenizer.json nor tokenizer.model"):
         ttok.load_tokenizer(str(sp_only))
     assert isinstance(ttok.load_tokenizer(os.path.join(root, "nowhere")), ttok.ByteTokenizer)
     assert isinstance(ttok.load_tokenizer(None), ttok.ByteTokenizer)

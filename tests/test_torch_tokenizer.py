@@ -135,9 +135,14 @@ def test_keyword_stop_sequences_match_jax(llama_dir):
 
 
 def test_a_directory_without_tokenizer_json_raises(tmp_path):
-    (tmp_path / "tokenizer.model").write_bytes(b"\x00")
+    """Without tokenizer.json the directory's tokenizer.model is read
+    (tests/test_torch_sentencepiece.py): a malformed one raises, and a
+    directory with neither file raises naming both."""
     (tmp_path / "tokenizer_config.json").write_text("{}")
-    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+    with pytest.raises(FileNotFoundError, match="neither tokenizer.json nor tokenizer.model"):
+        ttok.load_tokenizer(str(tmp_path))
+    (tmp_path / "tokenizer.model").write_bytes(b"\x00")
+    with pytest.raises(ValueError, match="tokenizer.model"):
         ttok.load_tokenizer(str(tmp_path))
 
 
@@ -146,7 +151,7 @@ def test_unread_components_raise(llama_dir):
     with open(f"{llama_dir}/tokenizer.json") as f:
         spec = json.load(f)
     for key, value in (("normalizer", {"type": "NFKC"}),
-                       ("pre_tokenizer", {"type": "Metaspace", "replacement": "▁"}),
+                       ("pre_tokenizer", {"type": "ByteLevel", "add_prefix_space": False}),
                        ("decoder", {"type": "WordPiece", "prefix": "##"})):
         bad = dict(spec, **{key: value})
         with pytest.raises(NotImplementedError, match=value["type"]):

@@ -46,3 +46,118 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ------------------------------------------------ SentencePiece tokenizer.model
+
+# USER_DEFINED and CONTROL pieces of the tiny model (type 4 and 3)
+SP_USER_DEFINED = ("<sep>", "日本")
+SP_CONTROL = ("<ctl>",)
+
+
+def write_sentencepiece_model(path, train_texts, vocab_size: int = 380) -> None:
+    """A tiny byte-fallback BPE `tokenizer.model` written with the protobuf
+    classes transformers ships: <unk> <s> </s>, the 256 byte pieces, the
+    USER_DEFINED and CONTROL pieces above, then BPE pieces learnt by
+    `tokenizers` on `train_texts` (score -rank, as SentencePiece scores BPE)."""
+    import json
+
+    from tokenizers import Tokenizer, models, normalizers, trainers
+    from transformers.utils import sentencepiece_model_pb2_new as pb
+
+    tok = Tokenizer(models.BPE(unk_token="<unk>", byte_fallback=True, fuse_unk=True))
+    tok.normalizer = normalizers.Sequence([normalizers.Prepend("▁"), normalizers.Replace(" ", "▁")])
+    specials = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    tok.train_from_iterator(list(train_texts) * 10, trainers.BpeTrainer(
+        vocab_size=vocab_size, special_tokens=specials, show_progress=False))
+    vocab = json.loads(tok.to_str())["model"]["vocab"]
+    skip = set(specials) | set(SP_USER_DEFINED) | set(SP_CONTROL)
+    learnt = [p for p, _ in sorted(vocab.items(), key=lambda kv: kv[1]) if p not in skip]
+
+    m = pb.ModelProto()
+
+    def add(piece, score, kind):
+        x = m.pieces.add()
+        x.piece, x.score, x.type = piece, score, kind
+
+    add("<unk>", 0.0, 2)
+    add("<s>", 0.0, 3)
+    add("</s>", 0.0, 3)
+    for b in range(256):
+        add(f"<0x{b:02X}>", 0.0, 6)
+    for p in SP_USER_DEFINED:
+        add(p, 0.0, 4)
+    for p in SP_CONTROL:
+        add(p, 0.0, 3)
+    for rank, p in enumerate(learnt):
+        add(p, -float(rank), 1)
+    ts = m.trainer_spec
+    ts.model_type, ts.vocab_size, ts.byte_fallback = 2, len(m.pieces), True
+    ts.unk_id, ts.bos_id, ts.eos_id, ts.pad_id = 0, 1, 2, -1
+    m.normalizer_spec.name = "identity"
+    m.normalizer_spec.add_dummy_prefix = True
+    m.normalizer_spec.remove_extra_whitespaces = False
+    with open(path, "wb") as f:
+        f.write(m.SerializeToString())
+
+
+class _StubProcessor:
+    """The few `SentencePieceProcessor` calls transformers' Llama tokenizer
+    and `LlamaConverter` make, over the parsed proto (`sentencepiece` is
+    not installed)."""
+
+    def __init__(self, **kwargs):
+        self._m = None
+
+    def LoadFromSerializedProto(self, data):
+        from transformers.utils import sentencepiece_model_pb2_new as pb
+
+        self._m = pb.ModelProto.FromString(data)
+
+    def Load(self, path):
+        with open(path, "rb") as f:
+            self.LoadFromSerializedProto(f.read())
+
+    def id_to_piece(self, i):
+        return self._m.pieces[i].piece
+
+    def piece_to_id(self, piece):
+        return next((i for i, p in enumerate(self._m.pieces) if p.piece == piece), 0)
+
+    def get_piece_size(self):
+        return len(self._m.pieces)
+
+    def encode(self, text, out_type=str, **kwargs):
+        return list(text)
+
+    def serialized_model_proto(self):
+        return self._m.SerializeToString()
+
+    IdToPiece, PieceToId, GetPieceSize = id_to_piece, piece_to_id, get_piece_size
+
+
+@pytest.fixture
+def stub_sentencepiece(monkeypatch):
+    """transformers with a stand-in `sentencepiece`, so `AutoTokenizer` (the
+    JAX package's `load_tokenizer`) converts a `tokenizer.model` directory
+    through `LlamaConverter` as it would with the real package."""
+    import importlib
+    import sys
+    import types
+
+    import transformers.utils.import_utils as iu
+    from transformers.utils import sentencepiece_model_pb2_new as pb
+
+    mod = types.ModuleType("sentencepiece")
+    mod.SentencePieceProcessor = _StubProcessor
+    mod.sentencepiece_model_pb2 = pb
+    monkeypatch.setitem(sys.modules, "sentencepiece", mod)
+    monkeypatch.setattr(iu, "_sentencepiece_available", True)
+    slow = importlib.import_module("transformers.models.llama.tokenization_llama")
+    fast = importlib.import_module("transformers.models.llama.tokenization_llama_fast")
+    # the fast class picks its slow class when first imported
+    monkeypatch.setattr(fast.LlamaTokenizerFast, "slow_tokenizer_class", slow.LlamaTokenizer)
+    return mod
+
+
+MASKED_TOKENIZER_PACKAGES = ("transformers", "tokenizers", "sentencepiece", "google.protobuf")
