@@ -116,6 +116,35 @@ profiled). After phase 5, the tiny trainer in fp32 on the card against
 the CPU (3 steps on K4's fma path, then a falling loss at lr 5e-3, then a
 save and a resume).
 
+Slice 12, on phase 4's pipeline after the switches (`phase_adapters`):
+K1 on pnp's broadcast operands (q and k of row 0 with a zero batch stride)
+against its plain version at (3,10,4096,64) and (3,20,1024,64), on the
+wgmma path, bit-equal to K1 on a dense copy, timed beside the copy; plug-and-play
+editing at 1024^2 (the edit's base image inverted, then `pnp_denoise`, 10
+steps, injection 0.8: exactly 2 K1 per transformer block per UNet call,
+8 x 36 of them broadcast), its UNet step at batch 3, three identical rows
+bit-identical with sharing on and off (with cuDNN off; row 0 also with
+cuDNN's convolutions); IP-Adapter Plus XL (random CLIP
+ViT-H/14 and Resampler, bf16; 64 + 10 x 210 K1); FaceID and FaceID-Plus
+written in the reference's layout, read through `faceid_keymap` and merged
+into a copy of the base UNet (zero-init adapters leave ε bit-identical,
+loaded ones change it; 10 x 210 K1, + 64 for Plus); the pipeline's UNet
+unchanged afterwards. Then, while the tree exists (`phase_finetune_tree`):
+rank-8 adapters over the tree's 32-layer LLM written in the reference's LoRA
+layout, booted with `load_pretrained_model(load_lora=True)`, quantized and
+fused (greedy tokens identical to the model merged in memory, K2 exactly
+128 per decode step, all mma); the surgery round trip on its resized
+embedding and lm_head; the data preparation over 2 PNGs and 2 WAVs with
+ImageBind-huge from the tree (states bit-identical to the pipeline's
+embeddings). After the train phase (`phase_finetune`): LoRA training at the
+train phase's width and batch (3 steps; frozen weights bit-unchanged; K1 and
+K4 exact), merged against unmerged logits, one decode step over an int4 base
+with unmerged adapters (K2's unfused calls counted, each held against its
+plain version), `MediaMap` over the prepared features into `train_forward`,
+and 5 steps of the prior's training (GPT-2 medium). After the tiny trainer
+(`phase_tiny_adapters`): one pnp step, one FaceID UNet call, one LoRA train
+step and one prior train step in float32, card against CPU.
+
 Every main-path run reads the K1, K2, K3, K4, K4a and K4b counters, set to
 0 just before it (K1's, K2's and K4's also by the path each launch took);
 K2 must stay at 0 outside `forward_llm`, K3 outside subject consistency,
@@ -238,6 +267,7 @@ def k1_path_expected(dname, d):
 def reset_k1(fa):
     fa.flash_fwd_cuda.launches = 0
     fa.flash_fwd_cuda.launches_by_path = dict.fromkeys(fa.K1_PATHS, 0)
+    fa.flash_fwd_cuda.launches_broadcast = 0
 
 
 def k1_paths_of(fa, fn, counter=None):
@@ -1763,9 +1793,11 @@ def _weight_bytes(module):
                for t in list(module.parameters()) + list(module.buffers()))
 
 
-def phase_full_width(failures):
+def phase_full_width(failures, feats_dir):
     """Phase 4: write the full-width tree, boot the pipeline from it, check
-    the boot, then drive text2img, the edit and subject consistency."""
+    the boot, then drive text2img, the edit and subject consistency, and
+    the paths of the later slices that run on the booted pipeline or read
+    the tree (the data preparation writes its features to `feats_dir`)."""
     import atexit
     import shutil
 
@@ -1776,12 +1808,12 @@ def phase_full_width(failures):
                            "free under the temporary directory or the checkout's build/")
     atexit.register(shutil.rmtree, root, True)
     try:
-        return _full_width_from(root, cfg, failures)
+        return _full_width_from(root, cfg, failures, feats_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _full_width_from(root, cfg, failures):
+def _full_width_from(root, cfg, failures, feats_dir):
     import gc
 
     import numpy as np
@@ -1913,6 +1945,12 @@ def _full_width_from(root, cfg, failures):
         t0 = time.time()
         out["switches"] = phase_switches(pipe, failures, finite)
         out["switches_seconds"] = time.time() - t0
+        t0 = time.time()
+        out["adapters"] = phase_adapters(pipe, failures)
+        out["adapters_seconds"] = time.time() - t0
+        t0 = time.time()
+        out["finetune_tree"] = phase_finetune_tree(pipe, root, feats_dir, failures)
+        out["finetune_tree_seconds"] = time.time() - t0
     finally:
         vae_lib.decode = decode
     del pipe
@@ -2746,7 +2784,6 @@ def phase_train(failures):
     Every step: finite losses and grad_norm, and exact K1 and K4 launches,
     each K4 call on the fused wgmma path; K4a, K4b, K2 and K3 stay at 0.
     Then one step profiled by kernel class."""
-    import dataclasses
     import os
     import tempfile
 
@@ -2754,42 +2791,25 @@ def phase_train(failures):
     import torch
 
     from instructany2pix_tpu_torch.llm import multimodal as mm
-    from instructany2pix_tpu_torch.llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
     from instructany2pix_tpu_torch.ops import flash_attention as fa
     from instructany2pix_tpu_torch.ops import quant as Q
-    from instructany2pix_tpu_torch.train import data as data_lib
     from instructany2pix_tpu_torch.train import launch
     from instructany2pix_tpu_torch.train.train_step import TrainConfig, make_train_step
 
-    tok = load_tokenizer(None)
-    ids = initialize_vision_tokenizer(tok)
-    base = mm.Any2PixLMConfig().with_token_ids(ids)
-    cfg = dataclasses.replace(base, llama=dataclasses.replace(
-        base.llama, num_layers=TRAIN_LAYERS, remat=True, remat_policy="dots"))
-    L = cfg.llama.num_layers
+    base_layers = mm.Any2PixLMConfig().llama.num_layers
+    L = TRAIN_LAYERS
     # per step with remat: K1 once in the forward and once more when the
     # backward recomputes each checkpointed layer; K4 once per layer
     per_step = _launches(k1=2 * L, k4=L, k4_wgmma=L)
     train_cfg = TrainConfig(total_steps=TRAIN_STEPS)
-    out = {"layers": L, "of_layers": base.llama.num_layers, "batch": TRAIN_BATCH,
+    out = {"layers": L, "of_layers": base_layers, "batch": TRAIN_BATCH,
            "max_length": TRAIN_LEN, "steps": TRAIN_STEPS, "per_step_expected": per_step}
     with tempfile.TemporaryDirectory() as d:
-        data, feats = _write_train_dataset(d, TRAIN_ROW_CHARS, cfg.image_codec_dim, 21)
-        dcfg = data_lib.DataConfig(max_length=TRAIN_LEN, audio_codec_dim=cfg.audio_codec_dim)
-        make_ds = lambda: data_lib.InstructionDataset(  # noqa: E731
-            data, data_lib.MediaMap(feats, d, cfg.image_codec_dim), tok, ids, dcfg)
-        # the first batch, as train() will collate it (same order, same rewrite stream)
-        ds0 = make_ds()
-        order = data_lib.length_grouped_indices(ds0.modality_lengths, TRAIN_BATCH,
-                                                np.random.RandomState(0))
-        first = data_lib.collate([ds0[int(i)] for i in order[:TRAIN_BATCH]], tok, ids, dcfg,
-                                 codec_dim=cfg.image_codec_dim)
+        cfg, make_ds, first, params = _train_setup(d)
         lengths = first["attention_mask"].sum(1).tolist()
         out["row_lengths"] = lengths
         if max(lengths) != TRAIN_LEN or len(set(lengths)) != TRAIN_BATCH:
             failures.append(f"train: row lengths {lengths}, expected ragged with a {TRAIN_LEN} row")
-        params = mm.init(cfg, torch.Generator("cuda").manual_seed(0), device="cuda",
-                         dtype=torch.bfloat16)
         out["params"] = sum(p.numel() for p in params.parameters())
         steps = []
         t_last = [0.0]
@@ -2845,7 +2865,7 @@ def phase_train(failures):
             log(f"train step {st['step']}: {st['seconds']:.3f} s, launches {st['launches']}, "
                 + ", ".join(f"{k} {v:.5g}" for k, v in st["metrics"].items()))
         save = res["saves"][-1]
-        log(f"train ({L} of {base.llama.num_layers} layers, {out['params'] / 1e9:.3f} B params, "
+        log(f"train ({L} of {base_layers} layers, {out['params'] / 1e9:.3f} B params, "
             f"bf16, remat dots, batch {TRAIN_BATCH} x {first['input_ids'].shape[1]}, rows "
             f"{lengths}): step median of 3-5 {out['step_seconds_median_3_5']:.3f} s, "
             f"{out['tokens_per_s']:.0f} tokens/s (padded), peak {out['peak_gib']:.2f} GiB; "
@@ -3865,6 +3885,992 @@ def phase_tiny_reference(failures):
     return out
 
 
+# ------------------------------------------------------------------ slice 12
+
+PNP_STEPS, PNP_INJECTION = 10, 0.8  # plug-and-play at full width
+ADAPTER_STEPS = 10  # CFG denoise steps of the Plus and FaceID paths
+FACEID_RANK = 128  # the reference's LoRA rank on every attention
+LORA_RANK, LORA_ALPHA, LORA_LR, LORA_TRAIN_STEPS = 8, 16.0, 2e-4, 3
+LORA_DECODE_TOKENS = 32  # greedy tokens of the LoRA-booted 7B
+PRIOR_TRAIN_STEPS, PRIOR_TRAIN_BATCH = 5, 8
+TINY_REL = 1e-5  # card against CPU in float32, relative to the largest element
+PNP_K1_SHAPES = [(3, 10, 4096, 64), (3, 20, 1024, 64)]  # the shared-Q/K self-attentions at 1024^2
+
+
+def reset_all(fa, Q):
+    reset_k1(fa)
+    reset_k3(fa)
+    Q.reset_qmv_counts()
+    reset_k4(fa)
+
+
+def path_counts(fa, Q):
+    """Every launch counter, read after a path that followed `reset_all`."""
+    return {"k1": fa.flash_fwd_cuda.launches,
+            "k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
+            "k1_broadcast": fa.flash_fwd_cuda.launches_broadcast,
+            "k2": Q.qmv_cuda.launches, "k2_by_path": dict(Q.qmv_cuda.launches_by_path),
+            "k2_unfused": Q.qmv_cuda.launches_unfused,
+            "k3": fa.flash_relpos2d_cuda.launches,
+            "k4": fa.flash_bwd_cuda.launches, "k4_by_path": dict(fa.flash_bwd_cuda.launches_by_path),
+            "k4a": fa.flash_bwd_dq_cuda.launches, "k4b": fa.flash_bwd_dkv_cuda.launches}
+
+
+def counted(name, fn, expect, failures):
+    """fn() with every launch counter set to 0 just before and read just
+    after; each must equal `expect` (a count or a by-path dict; 0 where not
+    given). Returns (fn's result, the counts, host seconds with a sync)."""
+    import torch
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+
+    torch.cuda.synchronize()
+    reset_all(fa, Q)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = path_counts(fa, Q)
+    want = {k: ({**dict.fromkeys(v, 0), **expect.get(k, {})} if isinstance(v, dict)
+                else expect.get(k, 0)) for k, v in got.items()}
+    if got != want:
+        failures.append(f"{name}: launches {got} (expected {want})")
+    nz = {k: v for k, v in got.items() if (any(v.values()) if isinstance(v, dict) else v)}
+    log(f"{name}: {dt:.3f} s, launches {nz} (each as expected: {got == want})")
+    return res, got, dt
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| over float32 copies on the CPU."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _k1_broadcast_rows(failures, timed=True):
+    """K1 on pnp's operands (q and k broadcast from batch row 0 with a zero
+    stride, v dense) against its plain version on the same views, at the
+    shared self-attentions' shapes, on the wgmma path; timed beside K1 on a
+    dense copy of the same values and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for i, (b, h, s, d) in enumerate(PNP_K1_SHAPES):
+        g = torch.Generator("cuda").manual_seed(600 + i)
+        q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=g, dtype=torch.bfloat16)
+                   for _ in range(3))
+        qb, kb = q[:1].expand_as(q).transpose(1, 2), k[:1].expand_as(k).transpose(1, 2)
+        vt = v.transpose(1, 2)
+        scale = d ** -0.5
+        ref = k1_reference(fa, qb, kb, vt, False, scale)
+        (o, lse), paths = k1_paths_of(fa, lambda: fa.flash_fwd_cuda(qb, kb, vt, False, scale,
+                                                                     return_lse=True))
+        r = k1_reading(o, lse, ref)
+        qd, kd = qb.contiguous(), kb.contiguous()
+        same = bool(torch.equal(o, fa.flash_fwd_cuda(qd, kd, vt, False, scale)))
+        row = {"shape": [b, h, s, d], "paths": paths, "dense_output": o.is_contiguous()
+               or o.transpose(1, 2).is_contiguous(), "equal_to_dense_copy": same, **r}
+        bound_ms, bound_by, _ = k1_bound((b, h, s, d), s, False, "bfloat16")
+        row.update(bound_ms=bound_ms, bound_by=bound_by)
+        if timed:
+            row["ms"] = time_ms(lambda: fa.flash_fwd_cuda(qb, kb, vt, False, scale), 20)
+            row["ms_dense_copy"] = time_ms(lambda: fa.flash_fwd_cuda(
+                qb.contiguous(), kb.contiguous(), vt, False, scale), 20)
+            row["copy_ms"] = time_ms(lambda: (qb.contiguous(), kb.contiguous()), 20)
+            row["plain_ms"] = time_ms(lambda: fa._reference_attention(qb, kb, vt, False, scale), 3)
+            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qb, kb, vt, scale=scale), 20)
+        ok = r["ok"] and paths == {"wgmma": 1} and same and row["dense_output"]
+        if not ok:
+            failures.append(f"K1 on broadcast Q/K {row['shape']}: {row}")
+        rows.append(row)
+        log(f"K1 broadcast Q/K {row['shape']}: path {paths}, max err {r['err_o']:.3g} "
+            f"({r['of_limit']:.3f} of the limit), equal to K1 on a dense copy {same}"
+            + (f"; {row['ms']:.4f} ms (dense copy {row['ms_dense_copy']:.4f} + the copy "
+               f"{row['copy_ms']:.4f}), plain {row['plain_ms']:.4f}, SDPA "
+               f"{row['library_ms']:.4f}, bound {bound_ms:.4f} ({bound_by})" if timed else ""))
+    return rows
+
+
+def _faceid_state(unet, ucfg, pcfg, rank, seed):
+    """A random FaceID checkpoint in the reference's nested layout
+    ({"image_proj": ..., "ip_adapter": ...}), written through
+    `faceid_keymap` read backward: a projector drawn with the port's
+    initializers, rank-`rank` adapters on to_q/to_k/to_v/to_out of every
+    attention (A N(0, 1)/sqrt(in), B N(0, 0.02^2)) and the face K/V of every
+    cross-attention, all float16 as published."""
+    import torch
+
+    from instructany2pix_tpu_torch.diffusion import ip_adapter_faceid as face
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import unet_convert
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    with torch.device("meta"):
+        proj = face.FaceProj(pcfg)
+    proj = L.init_(L.materialize(proj, torch.device("cuda"), torch.float32), g)
+    named = {f"image_proj.{n}": p.detach() for n, p in proj.named_parameters()}
+
+    def rnd(shape, std):
+        return torch.randn(shape, generator=g, device="cuda") * std
+
+    for path in unet_convert.all_attn_paths(ucfg):
+        attn = unet.get_submodule(path)
+        for name in face.LORA_PROJ:
+            lin = getattr(attn, name)
+            named[f"{path}.{name}.lora_a"] = rnd((rank, lin.in_features), lin.in_features ** -0.5)
+            named[f"{path}.{name}.lora_b"] = rnd((lin.out_features, rank), 0.02)
+        if path.endswith("attn2"):
+            for name in ("to_k_ip", "to_v_ip"):
+                w = getattr(attn, name).weight
+                named[f"{path}.{name}.weight"] = rnd(tuple(w.shape), w.shape[1] ** -0.5)
+    flat = face.faceid_keymap(ucfg, pcfg).to_ref(named)
+    nested = {"image_proj": {}, "ip_adapter": {}}
+    for k, v in flat.items():
+        top, _, rest = k.partition(".")
+        nested[top][rest] = v.to(torch.float16).cpu()
+    return nested
+
+
+def phase_adapters(pipe, failures):
+    """Slice 12 on phase 4's pipeline at 1024^2, each path with every launch
+    counter set to 0 just before and read just after: plug-and-play editing
+    (the edit's base image VAE-encoded and DDIM-inverted, then
+    `pnp_denoise`, PNP_STEPS steps, injection PNP_INJECTION: the up blocks'
+    self-attentions of the 3-row batch attend with row 0's Q/K, passed to K1
+    as zero-stride views); IP-Adapter Plus XL (the CLIP ViT-H/14
+    penultimate states of an image and of a zero image through
+    `ResamplerConfig.plus_xl()`, 16 tokens x 2048, into a CFG denoise);
+    FaceID and FaceID-Plus (shortcut): each checkpoint written in the
+    reference's layout (rank 128 on every attention), read back through
+    `faceid_keymap`, merged into a copy of the base UNet and run for a CFG
+    denoise from a seeded 512-d id embedding. Checks: K1 launches exact on
+    each path, all wgmma, the broadcast ones apart; K1 on the broadcast
+    operands against its plain version and bit-equal to K1 on a dense copy;
+    on three identical rows, sharing on bit-identical to sharing off with
+    PyTorch's own convolutions (row 0 also with cuDNN's, which round some
+    up-block convolutions by batch position); FaceID's
+    zero-init adapters leave ε
+    bit-identical, the loaded ones change it; finite latents and images;
+    the pipeline's UNet unchanged afterwards."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.codecs import image_io
+    from instructany2pix_tpu_torch.diffusion import ip_adapter_faceid as face
+    from instructany2pix_tpu_torch.diffusion import pnp as pnp_lib
+    from instructany2pix_tpu_torch.diffusion import resampler as rs_lib
+    from instructany2pix_tpu_torch.diffusion import sampler as sampler_lib
+    from instructany2pix_tpu_torch.models import clip as clip_lib
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.models import vae as vae_lib
+
+    cfg, ucfg = pipe.cfg, pipe.cfg.unet
+    unet = pipe.models["unet"]
+    out = {"card": card_line(), "paths": {}, "seconds": {}}
+    blocks = sum(isinstance(m, unet_lib.TBlock) for m in unet.modules())
+    up_blocks = sum(isinstance(m, unet_lib.TBlock) for n, m in unet.named_modules()
+                    if n.startswith("up_"))
+    attn_names = [n for n, m in unet.named_modules() if isinstance(m, unet_lib.Attention)]
+    before = {n: checksum(t) for n, t in unet.state_dict().items()
+              if any(n.startswith(a + ".") for a in attn_names)}
+    keys_before = set(unet.state_dict())
+
+    out["k1_broadcast_rows"] = _k1_broadcast_rows(failures)
+
+    hl = cfg.image_size // 8
+    g = torch.Generator("cuda").manual_seed(31)
+    with tempfile.TemporaryDirectory() as d:
+        png, _ = _write_media(d)
+        base_img = pipe.load_base_img(png)
+    with torch.inference_mode():
+        x = torch.as_tensor(image_io.to_model_range(base_img)[None], device=pipe.device)
+        vae_noise = torch.randn((1, hl, hl, 4), generator=g, device="cuda")
+        lat0 = torch.randn((1, hl, hl, 4), generator=g, device="cuda")
+        ctx_null, pooled_null = pipe._encode_sdxl_prompt("")
+        ctx_e, pooled_e = pipe._encode_sdxl_prompt("a watercolor painting of a fox in a forest")
+        tid = sampler_lib.default_time_ids(cfg.image_size, cfg.image_size, 1, pipe.device)
+
+        # ---- plug-and-play
+        n_inject = int(PNP_INJECTION * PNP_STEPS)
+        secs = {}
+
+        def pnp_path():
+            lat = vae_lib.encode(pipe.models["vae"], x, vae_noise, cfg.vae).float()
+            inv = sampler_lib.ddim_invert(unet, ucfg, pipe.schedule, lat, ctx_null, pooled_null,
+                                          tid, num_inference_steps=PNP_STEPS)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            edited = pnp_lib.pnp_denoise(unet, ucfg, pipe.schedule, inv, ctx_e, ctx_null, ctx_null,
+                                         pooled_e, pooled_null, pooled_null, tid, PNP_STEPS, 7.5,
+                                         PNP_INJECTION)
+            torch.cuda.synchronize()
+            secs["pnp_denoise"] = time.perf_counter() - t1
+            return edited, vae_lib.decode(pipe.models["vae"], edited, cfg.vae)
+
+        k1 = 2 * PNP_STEPS * 2 * blocks  # inversion at batch 1, pnp at batch 3: self + text each
+        (edited, img), c, dt = counted(
+            "pnp (inversion + pnp_denoise)", pnp_path,
+            {"k1": k1, "k1_by_path": {"wgmma": k1}, "k1_broadcast": n_inject * up_blocks}, failures)
+        out["paths"]["pnp"] = c
+        ok = bool(torch.isfinite(edited).all() and torch.isfinite(img).all())
+        out["pnp"] = {"seconds": dt, "pnp_denoise_seconds": secs["pnp_denoise"], "finite": ok,
+                      "shape": list(img.shape), "steps": PNP_STEPS, "injected_steps": n_inject,
+                      "shared_qk_blocks_per_forward": up_blocks}
+        if not ok or tuple(img.shape) != (1, cfg.image_size, cfg.image_size, 3):
+            failures.append(f"pnp: finite {ok}, image {list(img.shape)}")
+
+        # its UNet step at batch 3 (sharing on), and sharing on identical rows
+        ctx3 = torch.cat([ctx_null, ctx_null, ctx_e])
+        pooled3 = torch.cat([pooled_null, pooled_null, pooled_e])
+        kv3 = unet_lib.precompute_cross_kv(unet, ucfg, ctx3)
+        lat3 = torch.randn((3, hl, hl, 4), generator=g, device="cuda")
+
+        def step3():
+            return unet_lib.apply(unet, lat3, torch.full((3,), 500), ctx3, ucfg,
+                                  pooled_text=pooled3, time_ids=tid.repeat(3, 1), cross_kv=kv3,
+                                  pnp_share_qk=True)
+
+        time_ms(step3, 1, warmup=1)
+        samples = sorted(time_ms(step3, 1, warmup=0) for _ in range(5))
+        out["pnp"]["unet_step_batch3_ms"] = samples[2]
+        same_rows = lat3[:1].expand(3, -1, -1, -1).contiguous()
+        ctx_same = ctx_e.expand(3, -1, -1).contiguous()
+        args = (unet, same_rows, torch.full((3,), 500), ctx_same, ucfg)
+        kw = dict(pooled_text=pooled_e.expand(3, -1).contiguous(), time_ids=tid.repeat(3, 1))
+
+        def spread(e):
+            return max((e[i].float() - e[0].float()).abs().max().item() for i in (1, 2))
+
+        ident = {}
+        # cuDNN's convolutions round by batch position at some of the up blocks'
+        # shapes (its deterministic algorithms too), so with them the UNet already
+        # gives three identical rows different outputs without sharing; PyTorch's
+        # own convolutions treat the rows alike, which is where sharing is held to
+        # bit-identity. With cuDNN, row 0 (its own Q/K either way) must still match.
+        cudnn = torch.backends.cudnn
+        for name, enabled in (("cudnn", True), ("no_cudnn", False)):
+            with cudnn.flags(enabled=enabled, benchmark=cudnn.benchmark,
+                             deterministic=cudnn.deterministic, allow_tf32=cudnn.allow_tf32):
+                on = unet_lib.apply(*args, pnp_share_qk=True, **kw)
+                off = unet_lib.apply(*args, pnp_share_qk=False, **kw)
+            ident[name] = {"bit_identical": bool(torch.equal(on, off)),
+                           "row0_bit_identical": bool(torch.equal(on[0], off[0])),
+                           "off_rows_spread": spread(off), "on_rows_spread": spread(on),
+                           "on_minus_off": (on.float() - off.float()).abs().max().item()}
+        out["pnp"]["identical_rows"] = ident
+        if not (ident["no_cudnn"]["bit_identical"] and ident["cudnn"]["row0_bit_identical"]):
+            failures.append(f"pnp: three identical rows with sharing on against off: {ident}")
+        log(f"pnp at {cfg.image_size}^2 ({PNP_STEPS} inversion + {PNP_STEPS} pnp steps, "
+            f"{n_inject} shared): {dt:.3f} s (pnp_denoise {secs['pnp_denoise']:.3f} s), UNet step "
+            f"at batch 3 median {samples[2]:.2f} ms of 5; identical rows {ident}; finite {ok} "
+            f"[{out['card']}]")
+
+        # ---- IP-Adapter Plus XL: the CLIP ViT-H/14 tower and the Resampler, random bf16
+        vcfg = clip_lib.CLIPVisionConfig.vit_h()
+        with torch.device("meta"):
+            vision = clip_lib.CLIPVision(vcfg)
+        vision = L.init_(L.materialize(vision, torch.device("cuda"), torch.bfloat16),
+                         torch.Generator("cuda").manual_seed(11)).eval().requires_grad_(False)
+        rcfg = rs_lib.ResamplerConfig.plus_xl()
+        resampler = rs_lib.init(rcfg, torch.Generator().manual_seed(41), "cuda", torch.bfloat16)
+        rs = np.random.RandomState(42)
+        image = rs.randint(0, 256, (512, 384, 3)).astype(np.uint8)
+
+        def denoise(model, cond, uncond):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lat = sampler_lib.denoise(model, ucfg, pipe.schedule, lat0, ctx_e, ctx_null, pooled_e,
+                                      pooled_null, tid, ADAPTER_STEPS, 5.0, ip_tokens=cond,
+                                      ip_tokens_uncond=uncond)
+            torch.cuda.synchronize()
+            return lat, time.perf_counter() - t1
+
+        def plus_path():
+            cond, uncond = rs_lib.get_image_embeds_plus(resampler, rcfg, image=image,
+                                                        image_encoder=(vision, vcfg))
+            return cond, uncond, denoise(unet, cond, uncond)
+
+        k1 = 2 * vcfg.num_layers + ADAPTER_STEPS * 3 * blocks
+        (cond, uncond, (lat, den_s)), c, dt = counted(
+            "IP-Adapter Plus XL (CLIP states, Resampler, CFG denoise)", plus_path,
+            {"k1": k1, "k1_by_path": {"wgmma": k1}}, failures)
+        out["paths"]["ip_plus_xl"] = c
+        ok = bool(torch.isfinite(lat).all() and torch.isfinite(cond).all())
+        out["ip_plus_xl"] = {"seconds": dt, "denoise_seconds": den_s,
+                             "denoise_step_ms": den_s / ADAPTER_STEPS * 1e3,
+                             "tokens": list(cond.shape), "finite": ok}
+        if not ok or tuple(cond.shape) != (1, rcfg.num_queries, rcfg.output_dim):
+            failures.append(f"IP-Adapter Plus XL: tokens {list(cond.shape)}, finite {ok}")
+
+        # ---- FaceID and FaceID-Plus on a copy of the base UNet
+        fu = copy.deepcopy(unet)
+        pcfg = face.FaceProjConfig()
+        id_embed = torch.randn((1, pcfg.id_embeddings_dim), generator=g, device="cuda")
+        tok_probe = torch.randn((2, pcfg.num_tokens, ucfg.cross_attention_dim), generator=g,
+                                device="cuda", dtype=torch.bfloat16)
+        probe_args = (torch.cat([lat0, lat0]), torch.full((2,), 500), torch.cat([ctx_null, ctx_e]),
+                      ucfg)
+        probe_kw = dict(pooled_text=torch.cat([pooled_null, pooled_e]), time_ids=tid.repeat(2, 1),
+                        ip_tokens=tok_probe)
+        eps0 = unet_lib.apply(fu, *probe_args, **probe_kw)
+        face.attach_faceid_lora(fu, torch.Generator("cuda").manual_seed(43), rank=FACEID_RANK)
+        eps1 = unet_lib.apply(fu, *probe_args, **probe_kw)
+        out["faceid_zero_init_bit_identical"] = bool(torch.equal(eps0, eps1))
+        if not out["faceid_zero_init_bit_identical"]:
+            failures.append(f"FaceID: zero-init adapters move ε by "
+                            f"{(eps1.float() - eps0.float()).abs().max().item():.3g}")
+        face_img = rs.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+        for plus in (False, True):
+            name = "faceid_plus" if plus else "faceid"
+            pc = face.FaceProjConfig(plus=plus)
+            with tempfile.TemporaryDirectory() as d:
+                t1 = time.perf_counter()
+                path = f"{d}/ip-adapter-{name}_sdxl.bin"
+                torch.save(_faceid_state(fu, ucfg, pc, FACEID_RANK, 44 + int(plus)), path)
+                write_s = time.perf_counter() - t1
+                t1 = time.perf_counter()
+                sd = torch.load(path, map_location="cpu", weights_only=True)
+                proj_t, attn_t = face.convert_faceid(sd, ucfg, pc)
+                face.merge_faceid_weights(fu, attn_t)
+                proj = face.build_proj(proj_t, pc, "cuda", torch.bfloat16)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t1
+                del sd, attn_t
+            eps2 = unet_lib.apply(fu, *probe_args, **probe_kw)
+            moved = (eps2.float() - eps0.float()).abs().max().item()
+            if not moved > 0:
+                failures.append(f"{name}: the loaded adapters leave ε unchanged")
+
+            def face_path(pc=pc, proj=proj, plus=plus):
+                clip_c = clip_u = None
+                if plus:
+                    from instructany2pix_tpu_torch.diffusion import ip_adapter as ipa
+
+                    px = ipa.preprocess_clip_image(face_img, vcfg.image_size)
+                    clip_c = rs_lib.clip_penultimate(vision, vcfg, px)
+                    clip_u = rs_lib.clip_penultimate(vision, vcfg, torch.zeros_like(px))
+                cond, uncond = face.get_image_embeds(proj, pc, id_embed, clip_c, clip_u,
+                                                     shortcut=plus)
+                return cond, denoise(fu, cond, uncond)
+
+            k1 = (2 * vcfg.num_layers if plus else 0) + ADAPTER_STEPS * 3 * blocks
+            (cond, (lat, den_s)), c, dt = counted(f"{name} (projector, CFG denoise, rank-128 LoRA)",
+                                                  face_path, {"k1": k1, "k1_by_path": {"wgmma": k1}},
+                                                  failures)
+            out["paths"][name] = c
+            ok = bool(torch.isfinite(lat).all() and torch.isfinite(cond).all())
+            out[name] = {"seconds": dt, "denoise_seconds": den_s,
+                         "denoise_step_ms": den_s / ADAPTER_STEPS * 1e3, "write_seconds": write_s,
+                         "load_and_merge_seconds": load_s, "eps_moved_by_loaded": moved,
+                         "tokens": list(cond.shape), "finite": ok}
+            if not ok or tuple(cond.shape) != (1, pc.num_tokens, ucfg.cross_attention_dim):
+                failures.append(f"{name}: tokens {list(cond.shape)}, finite {ok}")
+            log(f"{name}: written {write_s:.2f} s, read, mapped and merged {load_s:.2f} s; "
+                f"loaded adapters move ε by {moved:.3g}; CFG denoise {ADAPTER_STEPS} steps "
+                f"{den_s:.3f} s ({den_s / ADAPTER_STEPS * 1e3:.2f} ms per step); finite {ok}")
+            del proj
+        del fu, vision, resampler
+    torch.cuda.empty_cache()
+    after = {n: checksum(t) for n, t in unet.state_dict().items() if n in before}
+    out["pipeline_unet_unchanged"] = after == before and set(unet.state_dict()) == keys_before
+    if not out["pipeline_unet_unchanged"]:
+        failures.append("adapters phase: the pipeline's UNet changed")
+    log(f"IP-Adapter Plus XL: {out['ip_plus_xl']['seconds']:.3f} s, denoise step "
+        f"{out['ip_plus_xl']['denoise_step_ms']:.2f} ms; FaceID zero-init ε bit-identical "
+        f"{out['faceid_zero_init_bit_identical']}; pipeline UNet unchanged "
+        f"{out['pipeline_unet_unchanged']} [{out['card']}]")
+    return out
+
+
+def _greedy(lm, cfg, ids, n):
+    """Greedy tokens of a Llama on a prompt of byte ids (prefill M > 16)."""
+    import torch
+
+    from instructany2pix_tpu_torch.llm import generate as gen_lib
+    from instructany2pix_tpu_torch.models import llama as llama_lib
+
+    emb = llama_lib.embed(lm, torch.as_tensor(ids, device="cuda")[None])
+    return gen_lib.generate(lm, cfg, emb, None, max_new_tokens=n, temperature=0.0,
+                            eos_id=-1).tokens[0].cpu()
+
+
+def _prep_media(d):
+    """Two PNGs and two 3 s 16 kHz WAVs for the data preparation."""
+    import os
+    import wave
+
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(51)
+    for i, hw in enumerate(((384, 512), (600, 480))):
+        Image.fromarray(rs.randint(0, 255, hw + (3,), np.uint8)).save(os.path.join(d, f"img{i}.png"))
+    for i, f in enumerate((440.0, 659.0)):
+        sig = np.sin(2 * np.pi * f * np.arange(48000) / 16000) * 0.5 + rs.randn(48000) * 0.05
+        with wave.open(os.path.join(d, f"snd{i}.wav"), "w") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(sig, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+def phase_finetune_tree(pipe, root, feats_dir, failures):
+    """Slice 12's tools that read the written tree, on phase 4's pipeline:
+    the LoRA boot (rank-8 adapters over all 32 layers of the tree's LLM and
+    its predictor heads written in the reference's LoRA layout, booted with
+    `load_pretrained_model(load_lora=True)`, quantized to int4 and fused,
+    then greedy decode of LORA_DECODE_TOKENS tokens: identical to the model
+    merged in memory from the same factors, K2 exactly 128 per decode step,
+    all mma); the surgery round trip on its resized embedding and lm_head;
+    the data preparation over 2 PNGs and 2 WAVs with ImageBind-huge from the
+    tree (states bit-identical to the pipeline's own embeddings of the
+    files, K1 exactly once per encoder layer per file)."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch import loaders
+    from instructany2pix_tpu_torch.models import llama as llama_lib
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.train import data_preparation as prep
+    from instructany2pix_tpu_torch.train import lora
+    from instructany2pix_tpu_torch.utils import surgery
+
+    cfg = pipe.cfg
+    lcfg = cfg.llm.llama
+    out = {"card": card_line(), "paths": {}}
+    base_dir = os.path.join(root, "llm-retrained")
+    prompt = list("Describe, in a few words, a red cat sleeping in an antique shop.".encode())
+    g = torch.Generator("cuda").manual_seed(61)
+    with tempfile.TemporaryDirectory() as lora_dir:
+        # ---- the finetune: adapters on the float base, merged in memory
+        m = loaders.load_llm(base_dir, cfg.llm, "cuda", torch.bfloat16)
+        lora.apply_lora(m, g, rank=LORA_RANK, alpha=LORA_ALPHA)
+        with torch.no_grad():
+            for n, p in m.named_parameters():
+                if n.endswith("lora_b"):
+                    p.copy_(torch.randn(p.shape, generator=g, device="cuda") * 0.02)
+                elif n.startswith("vae_predictor"):
+                    p.add_(torch.randn(p.shape, generator=g, device="cuda") * 0.01)
+        t0 = time.perf_counter()
+        counts = lora.save_lora_checkpoint(m, lora_dir)
+        out["lora_write_seconds"] = time.perf_counter() - t0
+        out["lora_files"] = counts
+        lora.merge_lora(m)
+        Q.quantize_llama(m.llama, bits=4)
+        llama_lib.fuse_projections(m.llama)
+        tokens_mem = _greedy(m.llama, lcfg, prompt, LORA_DECODE_TOKENS)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the boot
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        booted, _, _ = loaders.load_pretrained_model(lora_dir, base_dir, load_lora=True,
+                                                     cfg=cfg.llm, device="cuda",
+                                                     dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out["lora_load_merge_seconds"] = time.perf_counter() - t0
+
+        # ---- surgery on the merged model's resized embedding and lm_head (float32)
+        t1 = time.perf_counter()
+        fine = {"embed_tokens.weight": booted.llama.embed_tokens.weight.float(),
+                "lm_head.weight": booted.llama.lm_head.weight.float()}
+        n_base = lcfg.vocab_size - 9
+        base = {k: (v[:n_base] + torch.randn(v[:n_base].shape, generator=g, device="cuda") * 0.01)
+                .bfloat16().float() for k, v in fine.items()}
+        delta = surgery.make_delta(fine, base)
+        back = surgery.apply_delta(delta, base)
+        torch.cuda.synchronize()
+        out["surgery"] = {
+            "seconds": time.perf_counter() - t1, "rows": [lcfg.vocab_size, n_base],
+            "round_trip_bit_identical": all(torch.equal(back[k], fine[k]) for k in fine),
+            "added_rows_verbatim": all(torch.equal(delta[k][n_base:], fine[k][n_base:])
+                                       for k in fine)}
+        if not (out["surgery"]["round_trip_bit_identical"] and out["surgery"]["added_rows_verbatim"]):
+            failures.append(f"surgery: {out['surgery']}")
+        del fine, base, delta, back
+
+        t1 = time.perf_counter()
+        Q.quantize_llama(booted.llama, bits=4)
+        llama_lib.fuse_projections(booted.llama)
+        torch.cuda.synchronize()
+        out["lora_quantize_seconds"] = time.perf_counter() - t1
+        out["lora_boot_seconds"] = out["lora_load_merge_seconds"] + out["lora_quantize_seconds"]
+        k2 = 128 * (LORA_DECODE_TOKENS - 1)
+        tokens_boot, c, dt = counted(
+            f"LoRA-booted 7B greedy decode ({LORA_DECODE_TOKENS} tokens)",
+            lambda: _greedy(booted.llama, lcfg, prompt, LORA_DECODE_TOKENS),
+            {"k2": k2, "k2_by_path": {"mma": k2}}, failures)
+        out["paths"]["lora_boot_decode"] = c
+        same = bool(torch.equal(tokens_boot, tokens_mem))
+        out.update({"lora_decode_seconds": dt, "lora_tokens_identical": same,
+                    "lora_tokens": tokens_boot.tolist()})
+        if not same:
+            failures.append(f"LoRA boot: tokens {tokens_boot.tolist()} != merged in memory "
+                            f"{tokens_mem.tolist()}")
+        log(f"LoRA boot (rank {LORA_RANK} on 7 x 32 projections, heads): written "
+            f"{out['lora_write_seconds']:.2f} s ({counts}); load + merge "
+            f"{out['lora_load_merge_seconds']:.2f} s, quantize + fuse "
+            f"{out['lora_quantize_seconds']:.2f} s; greedy tokens identical to the model merged "
+            f"in memory {same}; surgery round trip {out['surgery']} [{out['card']}]")
+        del booted
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- data preparation with ImageBind-huge from the tree
+    vcfg, acfg = cfg.imagebind_vision, cfg.imagebind_audio
+    with tempfile.TemporaryDirectory() as media:
+        _prep_media(media)
+        times = []
+        argv = ["--input", media, "--output", feats_dir, "--ckpt",
+                os.path.join(root, "imagebind_huge.pth"), "--dtype", "bfloat16"]
+        k1 = 2 * vcfg.layers + 2 * acfg.layers
+        written, c, dt = counted("data preparation (2 PNGs, 2 WAVs, ImageBind-huge bf16)",
+                                 lambda: prep.main(argv, times=times),
+                                 {"k1": k1, "k1_by_path": {"wgmma": k1}}, failures)
+        out["paths"]["data_preparation"] = c
+        same = []
+        with torch.inference_mode():
+            for p in written:
+                stem = os.path.splitext(os.path.basename(p))[0]
+                kind = "image" if stem.startswith("img") else "audio"
+                src = os.path.join(media, stem + (".png" if kind == "image" else ".wav"))
+                want = pipe._embed_media({"type": kind, "fname": src}).cpu().numpy()[0]
+                same.append(bool(np.array_equal(np.load(p)["state"], want)))
+        out["data_preparation"] = {"seconds": dt, "files": len(written),
+                                   "ms_per_file": [t * 1e3 for t in times],
+                                   "bit_identical_to_pipeline": same}
+        if len(written) != 4 or not all(same):
+            failures.append(f"data preparation: {len(written)} files, bit-identical {same}")
+        log(f"data preparation: {dt:.3f} s with the boot; per file "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times)
+            + f" ms; states bit-identical to the pipeline's embeddings {same}")
+    return out
+
+
+def _train_setup(d):
+    """The full-width trainer's config (Any2PixLMConfig() at every Vicuna-7B
+    width, TRAIN_LAYERS layers, remat "dots"), a dataset factory over a
+    synthetic dataset written to `d`, its first batch as `train.launch.train`
+    collates it (same order, same rewrite stream; numpy) and bf16
+    parameters from seed 0 on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.llm import multimodal as mm
+    from instructany2pix_tpu_torch.llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
+    from instructany2pix_tpu_torch.train import data as data_lib
+
+    tok = load_tokenizer(None)
+    ids = initialize_vision_tokenizer(tok)
+    base = mm.Any2PixLMConfig().with_token_ids(ids)
+    cfg = dataclasses.replace(base, llama=dataclasses.replace(
+        base.llama, num_layers=TRAIN_LAYERS, remat=True, remat_policy="dots"))
+    data, feats = _write_train_dataset(d, TRAIN_ROW_CHARS, cfg.image_codec_dim, 21)
+    dcfg = data_lib.DataConfig(max_length=TRAIN_LEN, audio_codec_dim=cfg.audio_codec_dim)
+
+    def make_ds():
+        return data_lib.InstructionDataset(
+            data, data_lib.MediaMap(feats, d, cfg.image_codec_dim), tok, ids, dcfg)
+
+    ds0 = make_ds()
+    order = data_lib.length_grouped_indices(ds0.modality_lengths, TRAIN_BATCH,
+                                            np.random.RandomState(0))
+    first = data_lib.collate([ds0[int(i)] for i in order[:TRAIN_BATCH]], tok, ids, dcfg,
+                             codec_dim=cfg.image_codec_dim)
+    params = mm.init(cfg, torch.Generator("cuda").manual_seed(0), device="cuda",
+                     dtype=torch.bfloat16)
+    return cfg, make_ds, first, params
+
+
+def phase_finetune(feats_dir, failures):
+    """Slice 12's training paths at full width, each counted: LoRA on
+    Any2PixLMConfig() (Vicuna-7B widths, 4 of 32 layers, bf16, remat
+    "dots", batch 4 x 2048): `apply_lora` (r 8, alpha 16), `trainable_mask`,
+    3 steps of the port's optimizer over the trainable parameters (finite
+    losses; frozen weights bit-unchanged; every lora_b moved; K1 2L and K4 L
+    per step, wgmma); the adapted model's logits merged against unmerged
+    (within twice the bf16 model's own distance from float32); one decode
+    step over an int4 base with the adapters unmerged (K2's unfused call:
+    exactly 7 per layer, each held against its plain version within K2's
+    limit); `MediaMap` over the data preparation's features into one
+    `train_forward`; the prior's training (PRIOR_TRAIN_STEPS steps at
+    `PriorConfig.default()`, float32, finite losses)."""
+    import copy
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.llm import multimodal as mm
+    from instructany2pix_tpu_torch.llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import llama as llama_lib
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.prior import model as prior_lib
+    from instructany2pix_tpu_torch.train import data as data_lib
+    from instructany2pix_tpu_torch.train import lora
+    from instructany2pix_tpu_torch.train.train_step import TrainConfig, make_train_step
+
+    out = {"card": card_line(), "paths": {}}
+    tok = load_tokenizer(None)
+    ids = initialize_vision_tokenizer(tok)
+    with tempfile.TemporaryDirectory() as d:
+        cfg, make_ds, first, params = _train_setup(d)
+        dcfg = make_ds().cfg
+    batch = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+    Lr = cfg.llama.num_layers
+    lora.apply_lora(params, torch.Generator("cuda").manual_seed(1), rank=LORA_RANK, alpha=LORA_ALPHA)
+    mask = lora.trainable_mask(params)
+    n_train = sum(p.numel() for n, p in params.named_parameters() if mask[n])
+    frozen = {n: checksum(p) for n, p in params.named_parameters() if not mask[n]}
+    start = {n: checksum(p) for n, p in params.named_parameters() if mask[n]}
+    init_state, train_step = make_train_step(cfg, TrainConfig(learning_rate=LORA_LR,
+                                                              total_steps=100))
+    state = init_state(params)
+    steps = []
+
+    def run():
+        for _ in range(LORA_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, metrics = train_step(state, batch)
+            vals = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            steps.append({"seconds": time.perf_counter() - t1, "metrics": vals})
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    _, c, dt = counted(f"LoRA train ({LORA_TRAIN_STEPS} steps)", run,
+                       {"k1": LORA_TRAIN_STEPS * 2 * Lr, "k1_by_path": {"wgmma": LORA_TRAIN_STEPS * 2 * Lr},
+                        "k4": LORA_TRAIN_STEPS * Lr, "k4_by_path": {"wgmma": LORA_TRAIN_STEPS * Lr}},
+                       failures)
+    out["paths"]["lora_train"] = c
+    finite = all(np.isfinite(v) for st in steps for v in st["metrics"].values())
+    unchanged = all(checksum(p) == frozen[n] for n, p in params.named_parameters() if n in frozen)
+    moved_b = all(checksum(p) != start[n] for n, p in params.named_parameters()
+                  if n.endswith("lora_b"))
+    moved_a = np.mean([checksum(p) != start[n] for n, p in params.named_parameters()
+                       if n.endswith("lora_a")])
+    tokens = TRAIN_BATCH * int(batch["input_ids"].shape[1])
+    med = min(st["seconds"] for st in steps[1:])
+    out["lora_train"] = {
+        "steps": steps, "trainable_params": n_train,
+        "params": sum(p.numel() for p in params.parameters()), "frozen_unchanged": unchanged,
+        "every_lora_b_moved": moved_b, "lora_a_moved_share": float(moved_a),
+        "step_seconds_best_2_3": med, "tokens_per_s": tokens / med,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "resident_before_gib": resident / 2**30}
+    if not (finite and unchanged and moved_b):
+        failures.append(f"LoRA train: finite {finite}, frozen unchanged {unchanged}, every lora_b "
+                        f"moved {moved_b}: {steps}")
+    log(f"LoRA train ({Lr} of 32 layers, r {LORA_RANK}, {n_train / 1e6:.2f} M trainable of "
+        f"{out['lora_train']['params'] / 1e9:.3f} B, batch {TRAIN_BATCH} x "
+        f"{batch['input_ids'].shape[1]}): steps " + ", ".join(
+            f"{st['seconds']:.3f} s loss {st['metrics']['loss']:.4f}" for st in steps)
+        + f"; best of steps 2-{LORA_TRAIN_STEPS} {med:.3f} s, {tokens / med:.0f} tokens/s; peak "
+        f"{out['lora_train']['peak_gib']:.2f} GiB; frozen bit-unchanged {unchanged}; lora_b moved "
+        f"{moved_b}, lora_a moved {moved_a:.2f} [{out['card']}]")
+
+    # ---- merged against unmerged logits (bf16), beside the bf16 model's own distance from float32
+    x = batch["input_ids"][:1, :256]
+    with torch.no_grad():
+        unmerged = llama_lib.forward(params.llama, cfg.llama, input_ids=x)["logits"].float()
+        f32 = copy.deepcopy(params.llama).float()
+        ref32 = llama_lib.forward(f32, cfg.llama, input_ids=x)["logits"]
+        del f32
+        merged_m = lora.merge_lora(copy.deepcopy(params.llama))
+        merged = llama_lib.forward(merged_m, cfg.llama, input_ids=x)["logits"].float()
+        del merged_m
+    own = (unmerged - ref32).abs().max().item()
+    diff = (merged - unmerged).abs().max().item()
+    out["merge_logits"] = {"max_diff": diff, "bf16_own_max_diff": own, "limit": 2 * own,
+                           "of_limit": diff / max(2 * own, 1e-30)}
+    if not diff <= 2 * own:
+        failures.append(f"LoRA merge: logits move by {diff:.4g} > twice the bf16 model's own "
+                        f"distance from float32 ({own:.4g})")
+    log(f"LoRA merged against unmerged logits (bf16, 256 tokens): max diff {diff:.4g}, limit "
+        f"{2 * own:.4g} (twice the unmerged bf16 logits' distance from float32)")
+
+    # ---- one decode step over an int4 base with the adapters unmerged
+    with torch.no_grad():
+        qm = copy.deepcopy(params.llama).requires_grad_(False)
+        Q.quantize_llama(qm, bits=4)
+    calls = []
+    qmatmul = Q.qmatmul
+
+    def recording(x_, q, *a, **kw):
+        y = qmatmul(x_, q, *a, **kw)
+        calls.append((x_.detach().reshape(-1, x_.shape[-1]).clone(), q, kw, y.detach().clone()))
+        return y
+
+    with torch.inference_mode():
+        cache = llama_lib.KVCache.create(cfg.llama, 1, 64, torch.bfloat16, "cuda")
+        pre = llama_lib.forward(qm, cfg.llama, input_ids=x[:, :32], cache=cache)
+        nxt = pre["logits"][:, -1:].argmax(-1)
+        Q.qmatmul = recording
+        try:
+            step, c, _ = counted("one decode step, int4 base with unmerged adapters",
+                                 lambda: llama_lib.forward(qm, cfg.llama, input_ids=nxt,
+                                                           cache=pre["cache"]),
+                                 {"k2": 7 * Lr, "k2_by_path": {"mma": 7 * Lr}, "k2_unfused": 7 * Lr},
+                                 failures)
+        finally:
+            Q.qmatmul = qmatmul
+        out["paths"]["lora_unmerged_decode_step"] = c
+        worst = 0.0
+        ok = bool(torch.isfinite(step["logits"]).all())
+        for xk, q, kw, y in calls:
+            ref = Q._qmv_reference(xk, q, **kw)
+            r = qmv_reading(y.reshape(ref.shape), ref, q, xk, kw.get("norm_g"), kw.get("swiglu", False),
+                            kw.get("residual"))
+            worst = max(worst, r["of_limit"])
+            ok &= r["ok"]
+    out["lora_unmerged_step"] = {"k2_calls": len(calls), "worst_of_k2_limit": worst, "ok": ok,
+                                 "adapters_on_int4": sum(L.has_lora(m) for m in qm.modules())}
+    if not ok or len(calls) != 7 * Lr:
+        failures.append(f"LoRA over int4, unmerged: {out['lora_unmerged_step']}")
+    log(f"decode step over int4 with unmerged adapters: {len(calls)} K2 calls without a fused "
+        f"prologue, the worst {worst:.3f} of K2's limit against its plain version; finite {ok}")
+    del qm, cache, pre
+
+    # ---- MediaMap over the data preparation's features, into one train_forward
+    files = sorted(f for f in os.listdir(feats_dir) if f.endswith(".npz"))
+    mmap = data_lib.MediaMap({f"caption {f}": f for f in files}, feats_dir, cfg.image_codec_dim)
+    rec = [{"conversations": [{"from": "human", "value": f"change [caption {files[1]}] please"},
+                              {"from": "gpt", "value": f"[caption {files[0]}] done"}],
+            "base": f"caption {files[1]}", "target": f"caption {files[0]}", "modality": "image"}]
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "data.json"), "w") as f:
+            json.dump(rec, f)
+        ds = data_lib.InstructionDataset(os.path.join(d, "data.json"), mmap, tok, ids, dcfg)
+        b1 = data_lib.collate([ds[0]], tok, ids, dcfg, codec_dim=cfg.image_codec_dim)
+    got = mmap.get(f"caption {files[0]}")
+    with torch.no_grad():
+        loss, _ = mm.train_forward(params, cfg, {k: torch.from_numpy(v).cuda() for k, v in b1.items()})
+    out["media_map_train_forward"] = {"loss": float(loss), "norm": float(np.linalg.norm(got))}
+    if not (np.isfinite(float(loss)) and abs(np.linalg.norm(got) - 20.0) < 1e-3):
+        failures.append(f"MediaMap into train_forward: {out['media_map_train_forward']}")
+    log(f"MediaMap over the prepared features into train_forward: loss {float(loss):.4f}")
+    del params, state, batch, frozen, start
+    torch.cuda.empty_cache()
+
+    # ---- the prior's training, GPT-2 medium, float32
+    pcfg = prior_lib.PriorConfig.default()
+    with torch.device("meta"):
+        prior = prior_lib.Prior(pcfg)
+    prior = L.init_(L.materialize(prior, torch.device("cuda"), torch.float32),
+                    torch.Generator("cuda").manual_seed(71)).train()
+    g = torch.Generator("cuda").manual_seed(72)
+    b = PRIOR_TRAIN_BATCH
+    lens = torch.randint(5, pcfg.text_len, (b,), generator=g, device="cuda")
+    cond = {"src_type": torch.randint(0, 4, (b, 1), generator=g, device="cuda"),
+            "imagebind": torch.randn((b, 1, pcfg.imagebind_dim), generator=g, device="cuda"),
+            "crossattn_clip": (torch.randn((b, pcfg.text_len, pcfg.text_dim), generator=g,
+                                           device="cuda"),
+                               (torch.arange(pcfg.text_len, device="cuda")[None] < lens[:, None]).float()),
+            "score": prior_lib.score_embedding(6.5, pcfg.score_dim, "cuda").expand(b, 1, -1)}
+    target = torch.randn((b, pcfg.sequence_gen_length, pcfg.embed_dim), generator=g, device="cuda")
+    tx = prior_lib.make_optimizer(1e-4, weight_decay=0.01, warmup_steps=1)
+    pstate = tx.init(prior)
+    losses, times = [], []
+
+    def prior_run():
+        for _ in range(PRIOR_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(prior_lib.train_step(prior, pcfg, tx, pstate, cond, target,
+                                                     generator=g)))
+            times.append(time.perf_counter() - t1)
+
+    _, c, dt = counted(f"prior training ({PRIOR_TRAIN_STEPS} steps, GPT-2 medium, float32)",
+                       prior_run, {}, failures)
+    out["paths"]["prior_train"] = c
+    ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    out["prior_train"] = {"losses": losses, "step_ms_median_2_5": ms,
+                          "params": prior_lib.param_count(prior), "batch": b}
+    if not all(np.isfinite(losses)):
+        failures.append(f"prior training: losses {losses}")
+    log(f"prior training ({out['prior_train']['params'] / 1e6:.1f} M params, batch {b}): losses "
+        f"{[round(x_, 4) for x_ in losses]}, step median of 2-{PRIOR_TRAIN_STEPS} {ms:.2f} ms "
+        f"[{out['card']}]")
+    del prior, pstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tiny_adapters(failures):
+    """Slice 12's paths in float32 on tiny models, the card against the CPU
+    from the same weights and draws, each within TINY_REL of the largest
+    element (K1 on its fma path): one pnp step (sharing on), one FaceID
+    UNet call (random rank-4 adapters on every attention, face K/V), one
+    LoRA train step (the loss and the trainable parameters; frozen ones
+    bit-unchanged on both) and one prior train step (loss and parameters)."""
+    import copy
+
+    import torch
+
+    from instructany2pix_tpu_torch.diffusion import ip_adapter_faceid as face
+    from instructany2pix_tpu_torch.diffusion import pnp as pnp_lib
+    from instructany2pix_tpu_torch.diffusion.schedulers import Schedule
+    from instructany2pix_tpu_torch.llm import multimodal as mm
+    from instructany2pix_tpu_torch.llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.prior import model as prior_lib
+    from instructany2pix_tpu_torch.train import data as data_lib
+    from instructany2pix_tpu_torch.train import lora
+    from instructany2pix_tpu_torch.train import train_step as ts
+
+    out = {}
+    g = torch.Generator().manual_seed(81)
+    ucfg = unet_lib.UNetConfig.tiny(with_ip=True)
+    with torch.device("meta"):
+        unet = unet_lib.UNet(ucfg)
+    unet = L.init_(L.materialize(unet, torch.device("cpu"), torch.float32), g).eval()
+    ctx = [torch.randn(1, 7, ucfg.cross_attention_dim, generator=g) for _ in range(3)]
+    pooled = [torch.randn(1, ucfg.pooled_dim, generator=g) for _ in range(3)]
+    tid = torch.tensor([[64.0, 64, 0, 0, 64, 64]])
+    lat = torch.randn(1, 8, 8, 4, generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(unet).to(dev)
+        with torch.inference_mode():
+            res[dev] = pnp_lib.pnp_denoise(m, ucfg, Schedule.create(device=dev), lat.to(dev),
+                                           *[c.to(dev) for c in ctx], *[p.to(dev) for p in pooled],
+                                           tid.to(dev), num_inference_steps=1, injection_ratio=1.0)
+    out["pnp_step_rel"] = _rel(res["cuda"], res["cpu"])
+
+    face.attach_faceid_lora(unet, g, rank=4)
+    with torch.no_grad():
+        for n, p in unet.named_parameters():
+            if n.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    x = torch.randn(2, 8, 8, 4, generator=g)
+    ip = torch.randn(2, 2, ucfg.cross_attention_dim, generator=g)
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(unet).to(dev)
+        with torch.inference_mode():
+            kv = unet_lib.precompute_cross_kv(m, ucfg, torch.cat(ctx[:2]).to(dev), ip.to(dev))
+            res[dev] = unet_lib.apply(m, x.to(dev), torch.tensor([700, 300], device=dev),
+                                      torch.cat(ctx[:2]).to(dev), ucfg,
+                                      pooled_text=torch.cat(pooled[:2]).to(dev),
+                                      time_ids=tid.repeat(2, 1).to(dev), cross_kv=kv, ip_scale=0.7)
+    out["faceid_unet_rel"] = _rel(res["cuda"], res["cpu"])
+
+    tok = load_tokenizer(None)
+    ids = initialize_vision_tokenizer(tok)
+    cfg = mm.Any2PixLMConfig.tiny(ids)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        data, feats = _write_train_dataset(d, (40, 25), cfg.image_codec_dim, 22)
+        dcfg = data_lib.DataConfig(max_length=512, audio_codec_dim=cfg.audio_codec_dim)
+        ds = data_lib.InstructionDataset(data, data_lib.MediaMap(feats, d, cfg.image_codec_dim),
+                                         tok, ids, dcfg)
+        batch_np = data_lib.collate([ds[0], ds[1]], tok, ids, dcfg, codec_dim=cfg.image_codec_dim)
+    params = mm.init(cfg, torch.Generator().manual_seed(0))
+    lora.apply_lora(params, torch.Generator().manual_seed(1), rank=4)
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            if n.endswith("lora_b"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    tcfg = ts.TrainConfig(learning_rate=1e-3, total_steps=100, warmup_ratio=0.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(params).to(dev)
+        mask = lora.trainable_mask(m)
+        init_state, step = ts.make_train_step(cfg, tcfg)
+        state = init_state(m)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        frozen = {n: p.detach().clone() for n, p in m.named_parameters() if not mask[n]}
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+        runs[dev] = (losses, m, all(torch.equal(p, frozen[n])
+                                    for n, p in m.named_parameters() if n in frozen), mask)
+    lc, mc, uc, mask = runs["cpu"]
+    lg, mg, ug, _ = runs["cuda"]
+    pg = dict(mg.named_parameters())
+    out["lora_step_loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    # the trainable parameters after the second step (the first runs at lr 0): Adam moves each
+    # element by about lr, so elements are held to 0.1 of it and to 1e-4 of it on average,
+    # the tolerances of the existing tiny train check
+    dmax = max((pg[n].detach().cpu() - p.detach()).abs().max().item()
+               for n, p in mc.named_parameters() if mask[n])
+    dmean = max((pg[n].detach().cpu() - p.detach()).abs().mean().item()
+                for n, p in mc.named_parameters() if mask[n])
+    out.update(lora_step_param_max_of_lr=dmax / 1e-3, lora_step_param_mean_of_lr=dmean / 1e-3,
+               lora_step_frozen_unchanged=bool(uc and ug))
+
+    pcfg = prior_lib.PriorConfig.tiny()
+    with torch.device("meta"):
+        prior = prior_lib.Prior(pcfg)
+    prior = L.init_(L.materialize(prior, torch.device("cpu"), torch.float32), g).train()
+    cond = {"src_type": torch.tensor([[3], [0]]), "imagebind": torch.randn(2, 1, 16, generator=g),
+            "crossattn_clip": (torch.randn(2, pcfg.text_len, pcfg.text_dim, generator=g),
+                               torch.ones(2, pcfg.text_len)),
+            "score": torch.randn(2, 1, pcfg.score_dim, generator=g)}
+    target = torch.randn(2, 3, pcfg.embed_dim, generator=g)
+    draws = dict(t=torch.tensor([10, 900]), noise=torch.randn(target.shape, generator=g))
+    pres = {}
+    with torch.enable_grad():
+        loss0 = prior_lib.train_forward(prior, pcfg, cond, target, **draws)
+        grads0 = dict(zip([n for n, _ in prior.named_parameters()],
+                          torch.autograd.grad(loss0, list(prior.parameters()))))
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(prior).to(dev)
+        tx = prior_lib.make_optimizer(1e-3, warmup_steps=1)
+        st = tx.init(m)
+        mv = lambda v: v.to(dev) if torch.is_tensor(v) else tuple(x.to(dev) for x in v)  # noqa: E731
+        losses = [float(prior_lib.train_step(m, pcfg, tx, st, {k: mv(v) for k, v in cond.items()},
+                                             target.to(dev), **{k: v.to(dev) for k, v in draws.items()}))
+                  for _ in range(2)]
+        pres[dev] = (losses, m)
+    out["prior_step_loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(pres["cuda"][0],
+                                                                         pres["cpu"][0]))
+    # Adam moves each element by about lr whatever its gradient's size: where the
+    # gradient is float32 noise (the attention keys' bias, to which softmax is
+    # blind) the two devices may step either way, so such elements are held
+    # within lr, the rest within float32 rounding (tests/test_torch_prior_train.py)
+    pgp = dict(pres["cuda"][1].named_parameters())
+    strong_max = all_max = 0.0
+    for n, p in pres["cpu"][1].named_parameters():
+        d = (pgp[n].detach().cpu() - p.detach()).abs()
+        gn = grads0[n].abs()
+        strong = gn > 1e-4 * gn.max().clamp_min(1e-30)
+        lim = 1e-6 + 1e-6 * p.detach().abs().max().item()
+        strong_max = max(strong_max, (d[strong].max().item() if strong.any() else 0.0) / lim)
+        all_max = max(all_max, d.max().item() / (1e-3 + lim))
+    out["prior_step_param_strong_of_limit"] = strong_max
+    out["prior_step_param_max_of_lr"] = all_max
+    bad = [k for k in ("pnp_step_rel", "faceid_unet_rel", "lora_step_loss_rel", "prior_step_loss_rel")
+           if not out[k] <= TINY_REL]
+    if (bad or out["lora_step_param_max_of_lr"] > 0.1 or out["lora_step_param_mean_of_lr"] > 1e-4
+            or not out["lora_step_frozen_unchanged"] or out["prior_step_param_max_of_lr"] > 1.0
+            or out["prior_step_param_strong_of_limit"] > 1.0):
+        failures.append(f"tiny slice-12 checks, card vs CPU: {out}")
+    log("tiny fp32, card vs CPU: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                              for k, v in out.items()) + f" (limit {TINY_REL})")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3927,22 +4933,38 @@ def main(argv=None) -> int:
     t0 = time.time()
     tok_model = phase_tokenizer_model(failures)
     t_tok = time.time() - t0
+    import atexit
+    import shutil
+    import tempfile
+
+    feats_dir = tempfile.mkdtemp(prefix="ia2p-feats-")
+    atexit.register(shutil.rmtree, feats_dir, True)
     t0 = time.time()
-    full = phase_full_width(failures)
+    full = phase_full_width(failures, feats_dir)
     t_full = time.time() - t0
     t0 = time.time()
     train = phase_train(failures)
     t_train = time.time() - t0
     t0 = time.time()
+    finetune = phase_finetune(feats_dir, failures)
+    t_finetune = time.time() - t0
+    t0 = time.time()
     tiny = phase_tiny_reference(failures)
     t_tiny = time.time() - t0
     t0 = time.time()
     tiny_train = phase_tiny_train(failures)
+    t_tiny_train = time.time() - t0
+    t0 = time.time()
+    tiny_s12 = phase_tiny_adapters(failures)
     seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "k3_checks": t_k3, "k4_checks": t_k4,
-               "tokenizer_model": t_tok, "full_width": t_full, "train": t_train, "tiny": t_tiny,
-               "tiny_train": time.time() - t0, "total": time.time() - t_start}
+               "tokenizer_model": t_tok, "full_width": t_full, "train": t_train,
+               "adapters": full["adapters_seconds"], "finetune_tree": full["finetune_tree_seconds"],
+               "finetune": t_finetune, "tiny": t_tiny, "tiny_train": t_tiny_train,
+               "tiny_adapters": time.time() - t0, "total": time.time() - t_start}
     edit, subject, serve = full["edit"], full["subject"], full["serve"]
     sw = full["switches"]
+    # slice 12's paths, each with every counter read (phase_adapters, phase_finetune*)
+    s12 = {**full["adapters"]["paths"], **full["finetune_tree"]["paths"], **finetune["paths"]}
 
     head = next(r for r in rows if r["dtype"] == "bfloat16")
     k1_paths = {"text2img": sum(r["k1_launches"] for r in full["requests"]),
@@ -3953,7 +4975,7 @@ def main(argv=None) -> int:
                 "speculative_forward_llm": sw["spec_k1_launches"],
                 "greedy_decode": sw["greedy_k1_launches"], "debug_call": sw["debug_k1_launches"],
                 "nodebug_call": sw["nodebug_k1_launches"], "prior_ddpm": sw["prior_ddpm_k1_launches"],
-                "clip_encode": sw["clip_k1_launches"]}
+                "clip_encode": sw["clip_k1_launches"], **{p: c["k1"] for p, c in s12.items()}}
     d80 = [r for r in rows if r["dtype"] == "bfloat16" and r["shape"][3] == 80]
     k1 = {
         "name": "flash_fwd",
@@ -3976,7 +4998,11 @@ def main(argv=None) -> int:
             **{p: sw[f"{k}_k1_by_path"] for p, k in (
                 ("speculative_forward_llm", "spec"), ("greedy_decode", "greedy"),
                 ("debug_call", "debug"), ("nodebug_call", "nodebug"),
-                ("prior_ddpm", "prior_ddpm"), ("clip_encode", "clip"))}},
+                ("prior_ddpm", "prior_ddpm"), ("clip_encode", "clip"))},
+            **{p: c["k1_by_path"] for p, c in s12.items()}},
+        # K1 launches with a zero-stride (broadcast) operand: pnp's shared Q/K
+        "launches_broadcast_by_path": {p: c["k1_broadcast"] for p, c in s12.items()},
+        "broadcast_shapes": full["adapters"]["k1_broadcast_rows"],
         "max_abs_err": max(r["err_o"] for r in rows if r["dtype"] == "bfloat16"),
         "max_abs_err_fp32": max(r["err_o"] for r in rows if r["dtype"] == "float32"),
         "max_err_of_limit": max(r["of_limit"] for r in rows + k4["k1_kv_len"]),
@@ -4032,7 +5058,11 @@ def main(argv=None) -> int:
                              "debug_call": sw["debug_k2_launches"],
                              "nodebug_call": sw["nodebug_k2_launches"],
                              "prior_ddpm": sw["prior_ddpm_k2_launches"],
-                             "clip_encode": sw["clip_k2_launches"]},
+                             "clip_encode": sw["clip_k2_launches"],
+                             **{p: c["k2"] for p, c in s12.items()}},
+        # K2 launches with no fused prologue or epilogue: linears carrying adapters
+        "launches_unfused_by_path": {p: c["k2_unfused"] for p, c in s12.items()},
+        "lora_unmerged_step": finetune["lora_unmerged_step"],
         # the same launches by the kernel path each took (mma, fma), and the
         # tiny float32 greedy decode's, off the main paths
         "launches_by_kernel_path": {
@@ -4042,7 +5072,8 @@ def main(argv=None) -> int:
             "subject_call": subject["k2_by_path"], "serve_llm": serve["llm_k2_by_path"],
             "serve_run": serve["run_k2_by_path"], "tiny_greedy_decode": tiny["greedy_k2_by_path"],
             "tiny_server_llm": tiny["server"]["llm_k2_by_path"],
-            "speculative_forward_llm": sw["spec_k2_by_path"], "greedy_decode": sw["greedy_k2_by_path"]},
+            "speculative_forward_llm": sw["spec_k2_by_path"], "greedy_decode": sw["greedy_k2_by_path"],
+            **{p: c["k2_by_path"] for p, c in s12.items()}},
         "serve_llm_rows": serve["llm_k2_rows"],
         "speculative_rows": sw["spec_k2_rows"],
         "speculative_verify": {k: sw.get(k) for k in ("verify_ms_median", "verify_k2_ms",
@@ -4088,7 +5119,8 @@ def main(argv=None) -> int:
                              **{p: sw[f"{k}_k3_launches"] for p, k in (
                                  ("speculative_forward_llm", "spec"), ("greedy_decode", "greedy"),
                                  ("debug_call", "debug"), ("nodebug_call", "nodebug"),
-                                 ("prior_ddpm", "prior_ddpm"), ("clip_encode", "clip"))}},
+                                 ("prior_ddpm", "prior_ddpm"), ("clip_encode", "clip"))},
+                             **{p: c["k3"] for p, c in s12.items()}},
         "max_abs_err": max(r["err_o"] for r in k3rows),
         "max_err_of_limit": max(r["of_limit"] for r in k3rows),
         "ms": k3head["ms"],
@@ -4116,12 +5148,14 @@ def main(argv=None) -> int:
         "of_limit_dk", "of_limit_dv", "of_limit_fused", "of_limit_two_kernel")} for r in k4["k4"]]
 
     def per_path(key):
+        short = key.split("_")[0]
         return {"text2img": sum(r[key] for r in full["requests"]), "forward_llm": edit[key],
                 "edit_call": edit["call_" + key], "subject_call": subject[key],
-                "train": train["launches"][key.split("_")[0]],
+                "train": train["launches"][short],
                 "serve": sum(serve[p + key] for p in ("llm_", "", "lcm_", "run_")),
                 "switches": sum(sw[p + key] for p in ("spec_", "greedy_", "debug_", "nodebug_",
-                                                       "prior_ddpm_", "clip_"))}
+                                                       "prior_ddpm_", "clip_")),
+                **{p: c[short] for p, c in s12.items()}}
 
     k4_paths = per_path("k4_launches")
 
@@ -4137,7 +5171,8 @@ def main(argv=None) -> int:
             "replaces": f"instructany2pix_tpu/ops/flash_attention.py:{line}",
             "launches": sum(k4_paths.values()), "launches_by_path": k4_paths,
             "launches_by_kernel_path": {
-                "train": {p: train["launches"][f"k4_{p}"] for p in ("wgmma", "mma", "fma")}},
+                "train": {p: train["launches"][f"k4_{p}"] for p in ("wgmma", "mma", "fma")},
+                **{p: c["k4_by_path"] for p, c in s12.items()}},
             "two_kernel_launches": {"k4a": per_path("k4a_launches"),
                                     "k4b": per_path("k4b_launches")},
             "max_abs_err": max(max(r[f"err_{o}"] for o in out_key) for r in bf16),
@@ -4165,13 +5200,14 @@ def main(argv=None) -> int:
     k4b = k4_entry("flash_bwd_dkv", 367, ("dk", "dv"))
     kernels = [k1, k2, k3, k4a, k4b]
     result = {"card": card, "k2_shapes": qrows, "k4": k4, "full_width": full, "train": train,
-              "tiny_reference": tiny, "tiny_train": tiny_train, "tokenizer_model": tok_model,
-              "seconds": seconds}
+              "finetune": finetune, "tiny_reference": tiny, "tiny_train": tiny_train,
+              "tiny_adapters": tiny_s12, "tokenizer_model": tok_model, "seconds": seconds}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "kernels": kernels}, f, indent=1, default=str)
     summary = {k: v for k, v in full.items()
-               if k not in ("edit", "subject", "serve", "switches", "unet_step_profile")}
+               if k not in ("edit", "subject", "serve", "switches", "unet_step_profile", "adapters",
+                            "finetune_tree")}
     log(json.dumps({"full_width": summary, "tiny_reference": tiny, "seconds": seconds}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "step_profile"},
                     "tiny_train": tiny_train}, default=str))
@@ -4181,6 +5217,9 @@ def main(argv=None) -> int:
                    default=str))
     log(json.dumps({"switches": {k: v for k, v in sw.items() if k != "verify_profile"},
                     "tokenizer_model": tok_model}, default=str))
+    log(json.dumps({"adapters": full["adapters"], "finetune_tree": full["finetune_tree"],
+                    "finetune": {k: v for k, v in finetune.items() if k != "paths"},
+                    "tiny_adapters": tiny_s12}, default=str))
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

@@ -7,7 +7,10 @@ module key for key. Per leaf:
   * norm `g`/`b` become `weight`/`bias`, embedding `w` becomes `weight`;
   * free arrays (IP-Adapter's `raw_embed`, ViT tokens) copy as they are;
   * weight-only quantized linears (`w_q`/`w_q4` with `scale`/`gscale`)
-    become `QLinear`s holding the same bytes and float32 scales.
+    become `QLinear`s holding the same bytes and float32 scales;
+  * LoRA leaves of a float or quantized linear (`lora_a` (in, r), `lora_b`
+    (r, out), `lora_scale`) become its adapters (`layers.add_lora`, PEFT's
+    (r, in) and (out, r) layout), attached when the module has none.
 Fused projections a tree may carry are split back first: `to_qkv`
 (q|k|v along the output axis) and `to_kv` (k|v), and `ff_in_a`/`ff_in_g`
 re-join into `ff_in` (value half, then gate half). Loading is strict:
@@ -17,8 +20,8 @@ the tree leaves unset raises.
 Trees may hold numpy arrays or anything `numpy.asarray` accepts. Built
 modules are frozen for inference (`eval`, no gradients), except the
 trainer's `llm(..., trainable=True)`; `to_tree`
-maps a float module back to a numpy tree in the JAX layout, to compare
-parameters after training steps.
+maps a float module back to a numpy tree in the JAX layout (adapters
+included), to compare parameters after training steps.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import torch
 from torch import nn
 
 from .diffusion import ip_adapter as ipa
+from .diffusion import ip_adapter_faceid as faceid_lib
+from .diffusion import resampler as resampler_lib
 from .grounding import bert as bert_lib
 from .grounding import gdino as gdino_lib
 from .grounding import sam as sam_lib
@@ -86,12 +91,30 @@ def _leaf_keys(node: dict, allowed: set, name: str) -> None:
         raise KeyError(f"{name}: leaves {sorted(extra)} have no counterpart")
 
 
+_LORA_KEYS = {"lora_a", "lora_b", "lora_scale"}
+
+
+def _load_lora(lin: nn.Module, val: dict, name: str, seen: set) -> None:
+    """JAX adapters (`lora_a` (in, r), `lora_b` (r, out), `lora_scale`,
+    1 when absent) onto a linear, attached first when it has none."""
+    if "lora_a" not in val:
+        return
+    a = np.asarray(val["lora_a"])
+    scale = float(np.asarray(val.get("lora_scale", 1.0)))
+    if not L.has_lora(lin):
+        L.add_lora(lin, rank=a.shape[1], alpha=scale * a.shape[1])
+    _put(lin.lora_a, a.T, name + ".lora_a", seen)
+    _put(lin.lora_b, np.asarray(val["lora_b"]).T, name + ".lora_b", seen)
+    lin.lora_scale.fill_(scale)
+
+
 def _load(module: nn.Module, tree: dict, path: str, seen: set) -> None:
     for key, val in tree.items():
         name = f"{path}{key}"
         child = getattr(module, key, None)
         if isinstance(child, Q.QLinear):
-            _leaf_keys(val, set(child.q), name)
+            _leaf_keys(val, set(child.q) | _LORA_KEYS, name)
+            _load_lora(child, val, name, seen)
             for k, buf in child.q.items():
                 arr = np.asarray(val[k])
                 if tuple(arr.shape) != tuple(buf.shape):
@@ -100,7 +123,8 @@ def _load(module: nn.Module, tree: dict, path: str, seen: set) -> None:
         elif isinstance(child, nn.Parameter):
             _put(child, val, name, seen)
         elif isinstance(child, nn.Linear):
-            _leaf_keys(val, {"w", "b"}, name)
+            _leaf_keys(val, {"w", "b"} | _LORA_KEYS, name)
+            _load_lora(child, val, name, seen)
             _put(child.weight, np.asarray(val["w"]).T, name + ".w", seen)
             if "b" in val:
                 _put(child.bias, val["b"], name + ".b", seen)
@@ -123,20 +147,23 @@ def _load(module: nn.Module, tree: dict, path: str, seen: set) -> None:
 
 
 @torch.no_grad()
-def load_tree(module: nn.Module, tree: dict) -> nn.Module:
-    """Copy a JAX parameter tree into `module` in place (strict)."""
+def load_tree(module: nn.Module, tree: dict, split_fused: bool = True) -> nn.Module:
+    """Copy a JAX parameter tree into `module` in place (strict). With
+    `split_fused` the fused projections are split first (`unfuse`); the
+    perceivers keep their own `to_kv`."""
     seen: set = set()
-    _load(module, unfuse(tree), "", seen)
+    _load(module, unfuse(tree) if split_fused else tree, "", seen)
     missing = [n for n, p in module.named_parameters() if id(p) not in seen]
     if missing:
         raise KeyError(f"tree leaves {len(missing)} parameters unset, e.g. {missing[:5]}")
     return module
 
 
-def build(module_on_meta: nn.Module, tree: dict, device="cpu", dtype=torch.float32) -> nn.Module:
+def build(module_on_meta: nn.Module, tree: dict, device="cpu", dtype=torch.float32,
+          split_fused: bool = True) -> nn.Module:
     """Allocate a meta-built module on `device` in `dtype` and load `tree`."""
     m = L.materialize(module_on_meta, torch.device(device), dtype)
-    return load_tree(m, tree).eval().requires_grad_(False)
+    return load_tree(m, tree, split_fused).eval().requires_grad_(False)
 
 
 def _meta(cls, cfg):
@@ -158,6 +185,18 @@ def clip_text(tree, cfg: clip_lib.CLIPTextConfig, device="cpu", dtype=torch.floa
 
 def image_proj(tree, cfg: ipa.ImageProjConfig, device="cpu", dtype=torch.float32) -> ipa.ImageProj:
     return build(_meta(ipa.ImageProj, cfg), tree, device, dtype)
+
+
+def resampler(tree, cfg: resampler_lib.ResamplerConfig, device="cpu",
+              dtype=torch.float32) -> resampler_lib.Resampler:
+    """The IP-Adapter Plus Resampler from its JAX tree."""
+    return build(_meta(resampler_lib.Resampler, cfg), tree, device, dtype, split_fused=False)
+
+
+def face_proj(tree, cfg: faceid_lib.FaceProjConfig, device="cpu",
+              dtype=torch.float32) -> faceid_lib.FaceProj:
+    """The FaceID projector (with its perceiver for Plus) from its JAX tree."""
+    return build(_meta(faceid_lib.FaceProj, cfg), tree, device, dtype, split_fused=False)
 
 
 def prior(tree, cfg: prior_lib.PriorConfig, device="cpu", dtype=torch.float32) -> prior_lib.Prior:
@@ -280,6 +319,9 @@ def to_tree(module: nn.Module) -> Dict[str, Any]:
         out = {"w": arr(module.weight).T.copy()}
         if module.bias is not None:
             out["b"] = arr(module.bias)
+        if L.has_lora(module):
+            out.update(lora_a=arr(module.lora_a).T.copy(), lora_b=arr(module.lora_b).T.copy(),
+                       lora_scale=arr(module.lora_scale))
         return out
     if isinstance(module, nn.Embedding):
         return {"w": arr(module.weight)}

@@ -261,23 +261,39 @@ def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
                           cfg: Optional[mm_lib.Any2PixLMConfig] = None, device=None,
                           dtype: torch.dtype = torch.bfloat16):
     """The multimodal LM in one of the reference builder's load modes (the
-    JAX `load_pretrained_model`): a full finetune directory (default), or
-    the heads of a projector-only run over `model_base`. Returns (module,
-    tokenizer, token_ids). `cfg` defaults to Vicuna-7B with the tokenizer's
-    special-token ids. The LoRA mode is not ported yet."""
+    JAX `load_pretrained_model`): a full finetune directory (default); the
+    heads of a projector-only run over `model_base`; or, with `load_lora`,
+    `model_base` with the LoRA adapters and fully trained heads that
+    `model_path` holds in the reference's layout (`train.lora`), merged
+    into the base weights (merge on load). Returns (module, tokenizer,
+    token_ids); the tokenizer is always `model_path`'s. `cfg` defaults to
+    Vicuna-7B with the tokenizer's special-token ids. The merged model is
+    float: quantize (and fuse) it afterwards."""
     from .core.device import resolve_device
     from .llm.tokenizer import initialize_vision_tokenizer, load_tokenizer
 
-    if load_lora:
-        raise NotImplementedError(
-            "LoRA adapters need train/lora.py, which is not ported yet (ROADMAP Queue 1, item 9)")
     device = resolve_device(device)
     tokenizer = load_tokenizer(os.path.join(model_path, "tokenizer"))
     token_ids = initialize_vision_tokenizer(tokenizer)
     cfg = cfg or mm_lib.Any2PixLMConfig().with_token_ids(token_ids)
-    if projector_only:
+    if projector_only or load_lora:
         if not model_base:
-            raise ValueError("a projector-only load needs model_base")
+            raise ValueError(f"a {'LoRA' if load_lora else 'projector-only'} load needs model_base")
+    if load_lora:
+        from .train import lora as lora_lib
+
+        adapters, heads, scale = lora_lib.read_lora_checkpoint(model_path)
+        model = load_llm(model_base, cfg, device, dtype)
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            for name, t in heads.items():
+                if name not in params or tuple(params[name].shape) != tuple(t.shape):
+                    raise KeyError(f"{model_path}: {name} {tuple(t.shape)} has no parameter of "
+                                   "that shape in the LLM")
+                params[name].copy_(t.to(params[name].device))
+        lora_lib.load_adapters(model, adapters, scale)
+        return lora_lib.merge_lora(model), tokenizer, token_ids
+    if projector_only:
         heads = load_llm_heads(model_path)
         model = load_llm(model_base, cfg, device, dtype, heads=heads)
     else:

@@ -36,6 +36,17 @@ def _use_qmv(p: Q.QLinear, x: torch.Tensor) -> bool:
     return m <= Q.QMV_MAX_M and p.out_features % Q.QMV_TILE_N == 0
 
 
+def has_lora(p: nn.Module) -> bool:
+    """True when a linear carries low-rank adapters (`add_lora`)."""
+    return getattr(p, "lora_a", None) is not None
+
+
+def _lora_delta(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """((x @ A) @ B) · lora_scale in x's dtype: the adapter branch."""
+    a, b = p.lora_a.to(x.dtype), p.lora_b.to(x.dtype)
+    return F.linear(F.linear(x, a), b) * p.lora_scale.to(x.dtype)
+
+
 def linear(
     p: Union[nn.Linear, Q.QLinear],
     x: torch.Tensor,
@@ -48,29 +59,75 @@ def linear(
     `swiglu` (x is the gate|up pair, the product takes silu(gate)·up) and
     `residual` (added to the output) fuse into K2 when the quantized
     decode path is taken; every other path composes the same ops, in the
-    same order."""
+    same order.
+
+    A linear carrying adapters (`add_lora`) adds ((x @ A) @ B) · lora_scale,
+    on float and quantized weights alike (on a float weight after the bias,
+    which the JAX package adds last: the same sum in another order). The adapters
+    must see the transformed activation, so with a quantized base and any
+    of `norm`/`swiglu`/`residual` the prologue is composed here and K2 is
+    called without it (the JAX package's `"lora_a" not in p` rule)."""
     fused = norm is not None or swiglu or residual is not None
+    lora = has_lora(p)
     if isinstance(p, Q.QLinear):
         q = p.q
+        if fused and (lora or not _use_qmv(p, x)):
+            y = linear(p, _fused_prologue(x, norm, swiglu))
+            return y + residual if residual is not None else y
         if _use_qmv(p, x):
             y = Q.qmatmul(
                 x, q, norm_g=norm[0] if norm is not None else None,
                 norm_eps=norm[1] if norm is not None else 1e-6,
                 swiglu=swiglu, residual=residual,
             )
-            return y + q["b"].to(x.dtype) if "b" in q else y
-        if fused:
-            y = linear(p, _fused_prologue(x, norm, swiglu))
-            return y + residual if residual is not None else y
-        if "w_q" in q:
+        elif "w_q" in q:
             y = (x @ q["w_q"].to(x.dtype)) * q["scale"].to(x.dtype)
         else:
             y = Q.int4_matmul(x, q)
+        if lora:
+            y = y + _lora_delta(p, x)
         return y + q["b"].to(y.dtype) if "b" in q else y
     if fused:
         y = linear(p, _fused_prologue(x, norm, swiglu))
         return y + residual if residual is not None else y
+    if lora:
+        # the bias stays in the product, so zero adapters leave the output bit-identical
+        x = x.to(p.weight.dtype)
+        return F.linear(x, p.weight, p.bias) + _lora_delta(p, x)
     return F.linear(x.to(p.weight.dtype), p.weight, p.bias)
+
+
+@torch.no_grad()
+def add_lora(p: nn.Module, rank: int = 8, alpha: float = 16.0,
+             generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Attach low-rank adapters to a linear, in place, in PEFT's layout:
+    `lora_a` (rank, in) drawn N(0, 1)/sqrt(in) from `generator`, `lora_b`
+    (out, rank) zero, so the forward is unchanged until they are trained or
+    loaded, and a `lora_scale` buffer alpha/rank. All three sit beside the
+    base weight, whose name stays as it was (`to_q.weight`). On a
+    `QLinear` the adapters are float (the dtype of its bias, else float32).
+    Returns `p`."""
+    if has_lora(p):
+        raise ValueError("this linear already carries adapters")
+    if isinstance(p, Q.QLinear):
+        ref = p.b if hasattr(p, "b") else p.packed.new_empty((), dtype=torch.float32)
+    else:
+        ref = p.weight
+    n_in, n_out = p.in_features, p.out_features
+    a = torch.empty(rank, n_in, dtype=ref.dtype, device=ref.device)
+    a.normal_(generator=generator).mul_(n_in**-0.5)
+    p.lora_a = nn.Parameter(a)
+    p.lora_b = nn.Parameter(torch.zeros(n_out, rank, dtype=ref.dtype, device=ref.device))
+    p.register_buffer("lora_scale", torch.tensor(alpha / rank, dtype=ref.dtype, device=ref.device))
+    return p
+
+
+def remove_lora(p: nn.Module) -> nn.Module:
+    """Detach a linear's adapters (after a merge). Returns `p`."""
+    for name in ("lora_a", "lora_b", "lora_scale"):
+        if hasattr(p, name):
+            delattr(p, name)
+    return p
 
 
 def _fused_prologue(x, norm, swiglu):

@@ -176,7 +176,17 @@ def _fusable(parts) -> bool:
 def fuse_projections(params: Llama) -> Llama:
     """In place: q|k|v → `qkv` and gate|up → `gate_up` in every layer whose
     parts share one format, so decode runs four matvecs per layer instead of
-    seven. Scales join with their columns. Preserves the forward."""
+    seven. Scales join with their columns. Preserves the forward.
+
+    A layer whose q/k/v or gate/up still carry low-rank adapters raises:
+    joining them would drop the adapters. Merge them first
+    (`train.lora.merge_lora`)."""
+    carrying = [f"layer_{i}.{n}" for i in range(params.cfg.num_layers)
+                for n in ("q", "k", "v", "gate", "up")
+                if L.has_lora(getattr(getattr(params, f"layer_{i}"), n, None))]
+    if carrying:
+        raise ValueError(f"{carrying[:4]} carry unmerged adapters; merge them "
+                         "(train.lora.merge_lora) before fuse_projections")
     for i in range(params.cfg.num_layers):
         lay = getattr(params, f"layer_{i}")
         if all(hasattr(lay, n) for n in ("q", "k", "v")):

@@ -9,7 +9,9 @@ optional IP-Adapter tokens added with `ip_scale`, and `cross_kv` from
 
 Every attention goes through `ops.attention.dot_product_attention`; with
 no mask and head_dim 64 that is K1 on the GPU for self, text-cross and IP
-attention alike.
+attention alike. Any attention linear may carry low-rank adapters
+(`layers.add_lora`, FaceID's `attach_faceid_lora`); `layers.linear` applies
+them, also in `precompute_cross_kv`.
 """
 
 from __future__ import annotations
@@ -189,9 +191,26 @@ class TBlock(nn.Module):
         self.ff_out = nn.Linear(dim * 4, dim)
 
 
-def _tblock(p: TBlock, x, ctx, heads, ip_tokens, ip_scale, kv_pre=None, taps=None, tap_key=None):
+def _shared_qk_self_attn(p: Attention, h, heads):
+    """Plug-and-play self-attention: every row attends with row 0's Q and K
+    (the source row's), values stay per row. The broadcast rows reach K1 as
+    views with a zero batch stride, not copies."""
+    b, s, d = h.shape
+    hd = d // heads
+    q = L.linear(p.to_q, h).reshape(b, s, heads, hd)
+    k = L.linear(p.to_k, h).reshape(b, s, heads, hd)
+    v = L.linear(p.to_v, h).reshape(b, s, heads, hd)
+    o = dot_product_attention(q[:1].expand_as(q), k[:1].expand_as(k), v).reshape(b, s, d)
+    return L.linear(p.to_out, o)
+
+
+def _tblock(p: TBlock, x, ctx, heads, ip_tokens, ip_scale, kv_pre=None, taps=None, tap_key=None,
+            pnp_share_qk=False):
     h = L.layer_norm(p.norm1, x)
-    x = x + _attn(p.attn1, h, h, heads)
+    if pnp_share_qk:
+        x = x + _shared_qk_self_attn(p.attn1, h, heads)
+    else:
+        x = x + _attn(p.attn1, h, h, heads)
     h = L.layer_norm(p.norm2, x)
     x = x + _attn(p.attn2, h, ctx, heads, ip_tokens, ip_scale, kv_pre=kv_pre, taps=taps,
                   tap_key=tap_key)
@@ -213,7 +232,7 @@ class Transformer2D(nn.Module):
 
 
 def _transformer(p: Transformer2D, x, ctx, heads, ip_tokens, ip_scale, kv_tree=None, taps=None,
-                 tap_prefix=""):
+                 tap_prefix="", pnp_share_qk=False):
     b, hh, ww, c = x.shape
     res = x
     h = L.group_norm(p.norm, x)
@@ -226,7 +245,7 @@ def _transformer(p: Transformer2D, x, ctx, heads, ip_tokens, ip_scale, kv_tree=N
         h = _tblock(
             getattr(p, f"block_{i}"), h, ctx, heads, ip_tokens, ip_scale,
             kv_pre=kv_tree[f"block_{i}"] if kv_tree is not None else None,
-            taps=taps, tap_key=f"{tap_prefix}.block_{i}",
+            taps=taps, tap_key=f"{tap_prefix}.block_{i}", pnp_share_qk=pnp_share_qk,
         )
     if isinstance(p.proj_out, nn.Linear):
         h = L.linear(p.proj_out, h).reshape(b, hh, ww, c)
@@ -369,9 +388,12 @@ def apply(
     ip_scale: float = 1.0,
     cross_kv: Optional[dict] = None,  # precompute_cross_kv output
     capture_ip_attn: bool = False,
+    pnp_share_qk: bool = False,  # up-block self-attn rows share row 0's Q/K
 ):
     """ε prediction (B, H, W, out_channels) in the weights' dtype. When
-    `cross_kv` carries k_ip/v_ip, `ip_tokens` is unused. With
+    `cross_kv` carries k_ip/v_ip, `ip_tokens` is unused. `pnp_share_qk`
+    makes every up-block self-attention attend with batch row 0's queries
+    and keys (plug-and-play editing, `diffusion/pnp.py`). With
     `capture_ip_attn` returns `(eps, taps)`: every IP cross-attention's
     probabilities (B, heads, S_pixels, n_ip) under its layer path
     (`down_1.attn_0.block_0`, `mid.attn.block_0`, ...), as the JAX tap."""
@@ -440,7 +462,7 @@ def apply(
                 h = _transformer(
                     blk[f"attn_{j}"], h, ctx, rev_heads[i], ip_tokens, ip_scale,
                     kv_tree=cross_kv[f"up_{i}"][f"attn_{j}"] if cross_kv else None,
-                    taps=taps, tap_prefix=f"up_{i}.attn_{j}",
+                    taps=taps, tap_prefix=f"up_{i}.attn_{j}", pnp_share_qk=pnp_share_qk,
                 )
         if "up" in blk:
             h = L.conv2d(blk["up"], L.upsample2x_nearest(h))

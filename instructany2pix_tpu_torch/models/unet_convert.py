@@ -5,7 +5,8 @@ The port keeps torch's (out, in) linears and OIHW convs, so each rule is a
 rename. `cross_attn_paths` lists the cross-attentions in diffusers'
 `attn_processors` order (down blocks, then up blocks, then the mid block:
 module registration order), the order the IP-Adapter checkpoint indexes
-its processors by.
+its processors by; `all_attn_paths` lists every attention (self and
+cross) in that order, the index space of FaceID checkpoints.
 """
 
 from __future__ import annotations
@@ -112,4 +113,29 @@ def cross_attn_paths(cfg: unet_lib.UNetConfig) -> List[str]:
                 paths.append(f"up_{i}.attn_{j}.block_{k}.attn2")
     for k in range(cfg.transformer_layers_per_block[-1]):
         paths.append(f"mid.attn.block_{k}.attn2")
+    return paths
+
+
+def all_attn_paths(cfg: unet_lib.UNetConfig) -> List[str]:
+    """Every attention's module path, attn1 and attn2 interleaved per
+    transformer block, in diffusers' attn_processors order (down blocks, up
+    blocks, then the mid block): the index space of FaceID checkpoints,
+    whose LoRA processors cover self- and cross-attention alike (reference
+    ip_adapter_faceid.py:146-166)."""
+    paths = []
+
+    def block(prefix, depth):
+        for k in range(depth):
+            paths.extend([f"{prefix}.block_{k}.attn1", f"{prefix}.block_{k}.attn2"])
+
+    for i, btype in enumerate(cfg.down_block_types):
+        if btype == "CrossAttnDownBlock2D":
+            for j in range(cfg.layers_per_block):
+                block(f"down_{i}.attn_{j}", cfg.transformer_layers_per_block[i])
+    rev_depth = list(reversed(cfg.transformer_layers_per_block))
+    for i, btype in enumerate(reversed(cfg.down_block_types)):
+        if btype == "CrossAttnDownBlock2D":
+            for j in range(cfg.layers_per_block + 1):
+                block(f"up_{i}.attn_{j}", rev_depth[i])
+    block("mid.attn", cfg.transformer_layers_per_block[-1])
     return paths

@@ -29,7 +29,8 @@ There is no fallback from a kernel to its plain version: a CUDA call the
 kernel does not take raises. Layout: (B, H, S, D) like the JAX functions.
 Any strides are accepted as long as the last dimension is contiguous, so
 callers holding (B, S, H, D) tensors pass `x.transpose(1, 2)` without a
-copy; outputs have their input's strides.
+copy, and a zero stride (a row broadcast with `expand`) is read in place,
+TMA maps included; outputs are dense, in their input's stride order.
 """
 
 from __future__ import annotations
@@ -218,11 +219,16 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
                            f"error {rc}")
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.launches_by_path[path] += 1
+    if any(t.stride(i) == 0 and t.shape[i] > 1 for t in (q, k, v) for i in range(3)):
+        flash_fwd_cuda.launches_broadcast += 1
     return (o, lse) if return_lse else o
 
 
 flash_fwd_cuda.launches = 0  # K1 launches in this process
 flash_fwd_cuda.launches_by_path = dict.fromkeys(K1_PATHS, 0)  # the same, by path taken
+# the same, those with an operand broadcast along B, H or S (a zero stride, such
+# as plug-and-play's shared row-0 Q/K): the kernel reads such views in place
+flash_fwd_cuda.launches_broadcast = 0
 
 
 def _check_bwd(q, k, v, g, lse, delta):

@@ -209,7 +209,8 @@ def quantize_tree(
     its `QLinear`, in place, one at a time: each float weight is freed as
     soon as its quantized copy exists. Linears still on the meta device
     are left for a later call, so a model can be quantized as it is built,
-    layer by layer. Returns `module`."""
+    layer by layer. Low-rank adapters (`layers.add_lora`) move to the
+    `QLinear` unchanged, in float. Returns `module`."""
     match = should_quantize or (lambda p: bool(_DEFAULT_PATTERN.search(p)))
     names = [n for n, m in module.named_modules() if isinstance(m, nn.Linear)]
     for name in names:
@@ -221,7 +222,12 @@ def quantize_tree(
         q = _quantize_bits(lin.weight.T, bits, int4_grouped)  # (in, out), the JAX layout
         if lin.bias is not None:
             q["b"] = lin.bias.detach()
-        setattr(parent, leaf, QLinear(q))
+        ql = QLinear(q)
+        if getattr(lin, "lora_a", None) is not None:
+            # adapters survive quantization of the base weight, as in the JAX tree
+            ql.lora_a, ql.lora_b = lin.lora_a, lin.lora_b
+            ql.register_buffer("lora_scale", lin.lora_scale)
+        setattr(parent, leaf, ql)
         del lin
     return module
 
@@ -412,7 +418,8 @@ def qmv_cuda(x2, q, norm_g=None, norm_eps=1e-6, swiglu=False, residual=None):
     output comes from `torch.empty` and is all it allocates. Raises on
     input the kernel does not take and on a refused launch (cluster
     scheduling included). Counts the launch in `launches` and, by the path
-    the kernel reports (QMV_PATHS), in `launches_by_path`. K2 has no
+    the kernel reports (QMV_PATHS), in `launches_by_path`; one with no
+    prologue or epilogue also in `launches_unfused`. K2 has no
     backward (nor has the JAX kernel), so an input that requires a gradient
     while grad mode is on is refused rather than given an output that
     silently ends the autograd graph."""
@@ -445,17 +452,23 @@ def qmv_cuda(x2, q, norm_g=None, norm_eps=1e-6, swiglu=False, residual=None):
     path = QMV_PATHS[last_path()]
     qmv_cuda.launches += 1
     qmv_cuda.launches_by_path[path] += 1
+    if norm_g is None and not swiglu and residual is None:
+        qmv_cuda.launches_unfused += 1
     return out
 
 
 qmv_cuda.launches = 0  # K2 launches in this process
 qmv_cuda.launches_by_path = dict.fromkeys(QMV_PATHS, 0)  # the same, by path taken
+# the same, those without a prologue or an epilogue (a linear carrying adapters
+# composes its RMSNorm/SwiGLU/residual around such a call)
+qmv_cuda.launches_unfused = 0
 
 
 def reset_qmv_counts():
     """Set K2's launch counters to 0."""
     qmv_cuda.launches = 0
     qmv_cuda.launches_by_path = dict.fromkeys(QMV_PATHS, 0)
+    qmv_cuda.launches_unfused = 0
 
 
 def qmv_max_active_clusters(q, m, dtype, swiglu=False, norm=False):

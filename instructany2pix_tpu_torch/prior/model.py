@@ -10,6 +10,13 @@ it; see the JAX module). `no_diffusion=False` runs the DDPM sampling loop:
 the noisy latents join the prompt, GPT-2 predicts the sample, which is
 turned into ε for CFG and an ancestral DDPM step. `generate` and
 `generate_partial` are the plain autoregressive generations.
+
+Training: `train_forward` is the teacher-forced L1 loss, `make_optimizer`
+the reference's AdamW + StepLR with its linear warmup as the JAX optax
+chain computes it, `mask_target_sequence` the random target masking and
+`param_count` the parameter count. Every random draw (the timestep, the
+noise, the masking's ratio and keep draws) can be passed in; otherwise it
+comes from a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -51,6 +58,10 @@ class PriorConfig:
         ("score", 512),
         ("noisy_inputs", 0),
     )
+
+    @staticmethod
+    def default() -> "PriorConfig":
+        return PriorConfig()
 
     @staticmethod
     def tiny() -> "PriorConfig":
@@ -261,6 +272,154 @@ def generate_partial(params: Prior, cfg: PriorConfig, cond: Dict, target: torch.
                                        device=mask.device)], dim=1)
     out = _ar_decode(params, cfg, emb, mask, max(3 * t // 4, 1))
     return _project_out(params, torch.cat([prefix, out], dim=1))
+
+
+# --------------------------------------------------------------- training
+
+
+def train_forward(
+    params: Prior,
+    cfg: PriorConfig,
+    cond: Dict,
+    target: torch.Tensor,  # (B, L, embed_dim)
+    t: Optional[torch.Tensor] = None,  # (B,) int timesteps
+    noise: Optional[torch.Tensor] = None,  # target's shape
+    generator: Optional[torch.Generator] = None,
+    schedule: Optional[Schedule] = None,
+) -> torch.Tensor:
+    """Teacher-forced L1 training loss (reference prior/model.py:660-692):
+    the target noised at timestep `t` as 10·add_noise(target/10, noise)
+    joins the prompt as `noisy_inputs`, the clean target follows it, and
+    the GPT-2 states one position before each target token are held to it.
+    `t` (uniform over the training steps) and `noise` (standard normal)
+    are drawn from `generator` when not given. A float32 0-d loss."""
+    dev = params.sos.weight.device
+    target = target.to(dev)
+    sched = schedule or Schedule.create(SchedulerConfig(), dev)
+    b = target.shape[0]
+    if t is None:
+        t = torch.randint(0, sched.cfg.num_train_timesteps, (b,), generator=generator,
+                          device=generator.device if generator is not None else "cpu")
+    if noise is None:
+        noise = torch.randn(target.shape, generator=generator, dtype=target.dtype,
+                            device=generator.device if generator is not None else "cpu")
+    t, noise = t.to(dev), noise.to(device=dev, dtype=target.dtype)
+    noisy = 10.0 * sched.add_noise(target / 10.0, noise, t)
+    cond = dict(cond)
+    cond["noisy_inputs"] = noisy.to(target.dtype)
+    emb, mask = assemble_sequence(params, cfg, cond)
+    tlen = target.shape[1]
+    emb = torch.cat([emb, target.to(emb.dtype)], dim=1)
+    mask = torch.cat([mask, torch.ones((b, tlen), dtype=mask.dtype, device=dev)], dim=1)
+    h = gpt2.forward(params.gpt2, cfg.gpt2, emb, attention_mask=mask)
+    shifted = h[:, -1 - tlen:-1]
+    return (shifted.float() - target.float()).abs().mean()
+
+
+class PriorOptimizer:
+    """The JAX `make_optimizer` chain, in its order: optax's
+    `scale_by_adam` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0; moments in the
+    parameter dtype, bias correction at count + 1), then
+    `add_decayed_weights` (u + wd·p), then `scale_by_learning_rate` of the
+    warmup·StepLR schedule at the count before the step. No clipping: this is
+    not the LLM trainer's clipped AdamW. Updates trainable parameters in
+    place."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8  # optax's scale_by_adam defaults
+
+    def __init__(self, learning_rate: float, weight_decay: float = 0.0, warmup_steps: int = 1000,
+                 step_size_epochs: int = 5, gamma: float = 0.8, steps_per_epoch: int = 1000):
+        self.lr, self.wd = learning_rate, weight_decay
+        self.warmup, self.step_size, self.gamma = warmup_steps, step_size_epochs, gamma
+        self.steps_per_epoch = steps_per_epoch
+
+    def schedule(self, step: int) -> float:
+        """lr · min(step / warmup, 1) · γ^(epoch // step_size), epoch =
+        step // steps_per_epoch (Lightning steps the StepLR per epoch)."""
+        warm = min(step / max(self.warmup, 1), 1.0)
+        epoch = step // self.steps_per_epoch
+        return self.lr * warm * self.gamma ** (epoch // self.step_size)
+
+    def init(self, params: nn.Module) -> Dict:
+        ps = [p for p in params.parameters() if p.requires_grad]
+        return {"count": 0, "mu": [torch.zeros_like(p) for p in ps],
+                "nu": [torch.zeros_like(p) for p in ps]}
+
+    @torch.no_grad()
+    def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               state: Dict) -> None:
+        count = state["count"] + 1
+        lr = self.schedule(state["count"])
+        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            mu_hat = mu / torch.tensor(1 - self.b1**count, dtype=mu.dtype, device=mu.device)
+            nu_hat = nu / torch.tensor(1 - self.b2**count, dtype=nu.dtype, device=nu.device)
+            u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+            u = u + self.wd * p
+            p.add_(torch.tensor(-lr, dtype=u.dtype, device=u.device) * u)
+        state["count"] = count
+
+
+def make_optimizer(learning_rate: float, weight_decay: float = 0.0, warmup_steps: int = 1000,
+                   step_size_epochs: int = 5, gamma: float = 0.8,
+                   steps_per_epoch: int = 1000) -> PriorOptimizer:
+    """The prior's training optimizer (reference prior/model.py:262-270
+    `configure_optimizers`: AdamW + StepLR(step_size=5, γ=0.8), with the
+    1000-step linear warmup of its `warmup_step` hook :383-401)."""
+    return PriorOptimizer(learning_rate, weight_decay, warmup_steps, step_size_epochs, gamma,
+                          steps_per_epoch)
+
+
+def train_step(params: Prior, cfg: PriorConfig, tx: PriorOptimizer, state: Dict, cond: Dict,
+               target: torch.Tensor, **draws) -> torch.Tensor:
+    """One step: `train_forward` (its draws passed through), the gradient
+    of every trainable parameter and `tx`'s update in place. Returns the
+    detached loss."""
+    trainable = [p for p in params.parameters() if p.requires_grad]
+    with torch.enable_grad():
+        loss = train_forward(params, cfg, cond, target, **draws)
+        grads = torch.autograd.grad(loss, trainable, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainable, grads)]
+    tx.update(trainable, grads, state)
+    return loss.detach()
+
+
+def mask_target_sequence(
+    target: torch.Tensor,  # (B, L, D)
+    attn_mask: torch.Tensor,  # (B, L)
+    mask_ratio: float,
+    random_ratio: bool = False,
+    generator: Optional[torch.Generator] = None,
+    ratio_u: Optional[torch.Tensor] = None,  # () uniform draw in [0, 1)
+    keep_u: Optional[torch.Tensor] = None,  # (B, L) uniform draws in [0, 1)
+):
+    """Reference prior/model.py:403-420: zero target embeddings (and their
+    attention slots) at `mask_ratio`, or with `random_ratio` at a ratio
+    drawn uniformly in [0, mask_ratio) per call. A slot is kept where its
+    uniform draw exceeds the ratio. The draws come from `generator` unless
+    given. Returns (masked_target, masked_attn_mask, keep), keep None when
+    nothing is masked (ratio <= 1e-4)."""
+    if mask_ratio <= 1e-4:
+        return target, attn_mask, None
+    b, l, _ = target.shape
+    dev = generator.device if generator is not None else "cpu"
+    if random_ratio:
+        if ratio_u is None:
+            ratio_u = torch.rand((), generator=generator, device=dev)
+        ratio = ratio_u.to(target.device).float() * mask_ratio
+    else:
+        ratio = torch.tensor(mask_ratio, dtype=torch.float32, device=target.device)
+    if keep_u is None:
+        keep_u = torch.rand((b, l), generator=generator, device=dev)
+    keep = keep_u.to(target.device).float() > ratio
+    masked = torch.where(keep[..., None], target, torch.zeros_like(target))
+    return masked, attn_mask * keep.to(attn_mask.dtype), keep
+
+
+def param_count(params: nn.Module) -> int:
+    """Every parameter's element count (reference prior/model.py:747-794)."""
+    return int(sum(p.numel() for p in params.parameters()))
 
 
 # ------------------------------------------------------------ checkpoints

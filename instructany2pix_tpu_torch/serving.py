@@ -22,9 +22,9 @@ dispatch, the stages run in order, eagerly, each on the stacked batch.
 Torch's inference mode is thread-local, so each batch enters it on the
 worker thread; the kernels build at their first launch under
 `ops/_build.py`'s lock, so a first launch on the worker cannot race
-another build. One device only: the JAX server's tensor-parallel mesh and
-its staged parameters are not ported (ROADMAP Queue 1, item 10), and a
-mesh of more than one device raises.
+another build. One device only: the JAX server's tensor-parallel mesh
+(ROADMAP Queue 1, item 10) and its staged parameters (item 11) are not
+ported, and a mesh of more than one device raises.
 """
 
 from __future__ import annotations

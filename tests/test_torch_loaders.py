@@ -388,8 +388,19 @@ def test_projector_only_load_matches_jax(tree, tmp_path):
     _assert_same_params(got, convert.llm(convert.to_numpy(jparams), pcfg.llm), "projector-only")
     assert torch.equal(got.vae_projector_image.fc1.weight,
                        heads["model.vae_projector_image.0.weight"])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        loaders.load_pretrained_model(str(d), base, load_lora=True, device="cpu")
+    # the LoRA mode boots adapters written in the reference's layout over the same base
+    from instructany2pix_tpu_torch.train import lora as tlora
+
+    trained = loaders.load_llm(base, pcfg.llm, "cpu", torch.float32)
+    tlora.apply_lora(trained, torch.Generator().manual_seed(0), rank=2, alpha=4.0)
+    with torch.no_grad():
+        for n, p in trained.named_parameters():
+            if n.endswith("lora_b"):
+                p.fill_(0.01)
+    tlora.save_lora_checkpoint(trained, str(d))
+    merged, _, _ = loaders.load_pretrained_model(str(d), base, load_lora=True, cfg=pcfg.llm,
+                                                 device="cpu", dtype=torch.float32)
+    _assert_same_params(merged, tlora.merge_lora(trained), "LoRA merged on load")
 
 
 # ------------------------------------------------------------------ errors
