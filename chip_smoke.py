@@ -145,6 +145,31 @@ and 5 steps of the prior's training (GPT-2 medium). After the tiny trainer
 (`phase_tiny_adapters`): one pnp step, one FaceID UNet call, one LoRA train
 step and one prior train step in float32, card against CPU.
 
+Slice 13: after phase 4's pipeline is freed, while the tree exists
+(`phase_staged`): the tree booted into a `StagedParams` store under a
+12.5e9-byte budget (`loaders.staged_models_from_root`, groups built on
+first access, evicted least recently used to the host and restaged), the
+same seeded `forward_llm` and `__call__` as phase 4 (tokens identical,
+images bit-identical to the resident run's; evictions, swaps, swap_s,
+swap_bytes and peak memory beside the budget), then phase 4's served
+requests through `PipelineServer` over the staged pipeline (the UNet
+resolved from the store per batch; images bit-identical to the resident
+server's), then the same `forward_llm` on the int4 LLM restaged from the
+host (tokens identical; K2 128 launches per step, all mma). After the fine-tuning phases: `phase_codecs`
+(`build_vae("vq-npz")` and `VQVAE` over the prepared features;
+`ClipVisionCodec` at ViT-H/14, 32 K1 launches, all wgmma, within K1's limit
+carried through the tower; the VQ-GAN f16 at 256^2, batch 4: encode,
+quantize, decode and one generator and one discriminator step with Adam
+(0.5, 0.9), every weight moved; SpecVQGAN's 1D VQ model, the MelGAN vocoder
+and LPAPS on an 80 x 848 mel), `phase_mpt` (MPT-7B bf16, random: prefill
+512 tokens, 32 cached decode steps, held to one full forward within twice
+the full forward's bf16 distance from float32), `phase_clip_score`
+(ViT-H/14 towers, 2 images and 2 prompts, 32 K1 launches); and at the end
+`phase_tiny_slice13` (float32, TF32 off: the tiny VQ-GAN, VQ1D and MPT on
+the card against the CPU, indices identical, within TINY_REL; the tiny edit
+through a store that evicts between stages, bit-identical to the edit
+without one).
+
 Every main-path run reads the K1, K2, K3, K4, K4a and K4b counters, set to
 0 just before it (K1's, K2's and K4's also by the path each launch took);
 K2 must stay at 0 outside `forward_llm`, K3 outside subject consistency,
@@ -1958,6 +1983,9 @@ def _full_width_from(root, cfg, failures, feats_dir):
     # it now, so the phases after this one start without its weights
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.time()
+    out["staged"] = phase_staged(root, cfg, failures)
+    out["staged_seconds"] = time.time() - t0
     return out
 
 
@@ -2182,6 +2210,10 @@ def phase_edit(pipe, failures, finite):
                     "call_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                     "mean_pixels": [float(non_refined.mean()), float(refined.mean())]})
         pipe.stage_times = None
+        # on the host, for the staged edit after this pipeline is freed
+        RESIDENT_EDIT.update(images=(non_refined, refined), tokens=out["tokens"],
+                             decode_steps=steps, forward_llm_k1=k1_expected,
+                             call_k1=expected, blocks={n: blocks(n) for n in ("unet", "refiner")})
         size = cfg.image_size
         images_ok = all(a.shape == (size, size, 3) and a.dtype == np.uint8
                         for a in (non_refined, refined))
@@ -2222,6 +2254,35 @@ def _vicuna_prompt(inst):
     conv.append_message(conv.roles[0], inst)
     conv.append_message(conv.roles[1], None)
     return conv.get_prompt()
+
+
+def _served_edits(image, dd):
+    """The served diffusion requests of `phase_serve` and `phase_staged`: 4
+    edits of one image and a caption-only request, and a stub of the LLM
+    stage that gives each edit seeded outcomes (a random 7B asks for no
+    image)."""
+    import numpy as np
+
+    from instructany2pix_tpu_torch import serving
+
+    def stub(batch):
+        outs = []
+        for r in batch:
+            if not r.mm_data:
+                outs.append((None, None, " a caption only", None, None))
+                continue
+            rk = np.random.RandomState(r.seed)
+            outs.append((rk.randn(1, dd).astype(np.float32), rk.randn(dd).astype(np.float32),
+                         f" a cat in an antique shop, take {r.seed}", r.mm_data[0]["fname"],
+                         dict(all_objs=[], extra_embeds=np.zeros((0, dd)), extra_idx=[])))
+        return outs
+
+    edits = [serving.PipelineRequest("Put <video> in the picture.", [image],
+                                     num_inference_steps=EDIT_STEPS, cfg=10.0, refinement=0.5,
+                                     seed=s) for s in (1, 2, 3, 4)]
+    caption_only = serving.PipelineRequest("Describe the shop.", [], num_inference_steps=EDIT_STEPS,
+                                           cfg=10.0, refinement=0.5, seed=5)
+    return edits, caption_only, stub
 
 
 def phase_serve(pipe, failures, finite, edit):
@@ -2369,26 +2430,7 @@ def phase_serve(pipe, failures, finite, edit):
 
             # ---- the diffusion stages through submit, the LLM stage stubbed
             dd = cfg.llm.image_codec_dim
-
-            def stub(batch):
-                outs = []
-                for r in batch:
-                    if not r.mm_data:
-                        outs.append((None, None, " a caption only", None, None))
-                        continue
-                    rk = np.random.RandomState(r.seed)
-                    outs.append((rk.randn(1, dd).astype(np.float32), rk.randn(dd).astype(np.float32),
-                                 f" a cat in an antique shop, take {r.seed}", r.mm_data[0]["fname"],
-                                 dict(all_objs=[], extra_embeds=np.zeros((0, dd)), extra_idx=[])))
-                return outs
-
-            server._llm_stage = stub
-            edits = [serving.PipelineRequest("Put <video> in the picture.", [image],
-                                             num_inference_steps=EDIT_STEPS, cfg=10.0,
-                                             refinement=0.5, seed=s) for s in (1, 2, 3, 4)]
-            caption_only = serving.PipelineRequest("Describe the shop.", [],
-                                                   num_inference_steps=EDIT_STEPS, cfg=10.0,
-                                                   refinement=0.5, seed=5)
+            edits, caption_only, server._llm_stage = _served_edits(image, dd)
             ref_steps = int(50 * 0.5)
             k1_expected = EDIT_STEPS * 5 * blocks("unet") + ref_steps * 2 * blocks("refiner")
             served = []
@@ -2430,6 +2472,8 @@ def phase_serve(pipe, failures, finite, edit):
             repeat_ok = all(np.array_equal(a.image, b.image) for a, b in zip(first[:4], again[:4]))
             differ = all(not np.array_equal(first[i].image, first[j].image)
                          for i in range(4) for j in range(i + 1, 4))
+            # on the host, for the staged serve after this pipeline is freed
+            RESIDENT_EDIT["served"] = [r.image for r in first[:4]]
             out.update({"images_ok": images_ok, "repeat_identical": repeat_ok,
                         "seeds_differ": differ, "caption_only_none": first[4].image is None,
                         "decodes_finite": new_finite,
@@ -4871,6 +4915,612 @@ def phase_tiny_adapters(failures):
     return out
 
 
+# ------------------------------------------------------------------ slice 13
+
+STAGED_BUDGET = 12.5e9  # bytes: the JAX staged boot's default, below the 17.61 GiB of weights
+MPT_PREFILL = 512  # MPT-7B prompt tokens
+MPT_DECODE = 32  # cached decode steps after it
+VQ_BATCH = 4  # VQ-GAN f16 images of 256^2 per step
+MEL_FRAMES = 848  # the SpecVQGAN mel: 80 bins x 848 frames (10 s at 22.05 kHz, hop 256, trimmed)
+RESIDENT_EDIT: dict = {}  # phase_edit's and phase_serve's images, tokens and counts, on the host
+
+
+def _same_images(a, b):
+    """(bit-identical, max |a - b| in uint8 levels)."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return bool(d.max() == 0), int(d.max())
+
+
+def phase_staged(root, cfg, failures):
+    """After the resident pipeline is freed: the same tree booted into a
+    `StagedParams` store under STAGED_BUDGET (`loaders.staged_models_from_root`),
+    the same seeded `forward_llm` and `__call__` as phase_edit (tokens
+    identical, images bit-identical to the resident run's), the store's
+    evictions and swaps; then phase_serve's requests through `PipelineServer`
+    over the staged pipeline (the UNet resolved from the store per batch;
+    images bit-identical to the resident server's); then the same
+    `forward_llm` once more on the int4 LLM restaged from the host (tokens
+    identical, K2 128 launches per step, all mma)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch import loaders, serving
+    from instructany2pix_tpu_torch.core.dtypes import DEFAULT
+    from instructany2pix_tpu_torch.core.staging import tree_device_bytes
+    from instructany2pix_tpu_torch.pipeline import InstructAny2PixPipeline
+
+    card = card_line()
+    ref = RESIDENT_EDIT
+    out = {"budget_bytes": STAGED_BUDGET, "card": card, "paths": {}}
+    if "images" not in ref or "served" not in ref:
+        failures.append("staged edit: the resident edit or server left no outputs to compare with")
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    store = loaders.staged_models_from_root(cfg, root, quant_bits=4, dtype=DEFAULT.param_dtype,
+                                            budget_bytes=STAGED_BUDGET)
+    pipe = InstructAny2PixPipeline(cfg, ckpt=root, llm_quant_bits=4, models=store)
+    torch.cuda.synchronize()
+    out["boot_seconds"] = time.time() - t0  # tokenizers, SAM, GroundingDINO; groups load lazily
+    per_step = 4 * cfg.llm.llama.num_layers
+    steps = ref["decode_steps"]
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            png, wav = _write_media(d)
+            media = [{"type": "image", "fname": png}, {"type": "audio", "fname": wav}]
+            inst = "Put the sound of <video> into the picture <video> and draw it."
+            k1_llm, k2 = ref["forward_llm_k1"], per_step * steps
+            _, c, dt = counted("staged forward_llm", lambda: pipe.forward_llm(
+                inst, media, generator=torch.Generator("cuda").manual_seed(0)),
+                {"k1": k1_llm, "k1_by_path": {"wgmma": k1_llm}, "k2": k2, "k2_by_path": {"mma": k2}},
+                failures)
+            out["paths"]["staged_forward_llm"] = c
+            tokens = pipe.last_generate.tokens[0, :steps + 1].tolist()
+            out.update({"forward_llm_seconds": dt, "tokens_identical": tokens == ref["tokens"],
+                        "after_llm": {k: store.stats[k] for k in ("swaps", "swap_bytes")}})
+            rs = np.random.RandomState(7)
+            d_img = cfg.llm.image_codec_dim
+            pipe.cache = (rs.randn(1, d_img).astype(np.float32), rs.randn(d_img).astype(np.float32),
+                          " a cat in an antique shop", png,
+                          dict(all_objs=[], extra_embeds=np.zeros((0, d_img), np.float32),
+                               extra_idx=[]))
+            pipe.stage_times = {}
+            (non_refined, refined, msg), c, dt = counted(
+                "staged __call__", lambda: pipe(inst, media, num_inference_steps=EDIT_STEPS,
+                                                refinement=0.5, seed=1, use_cache=True),
+                {"k1": ref["call_k1"], "k1_by_path": {"wgmma": ref["call_k1"]}}, failures)
+            out["paths"]["staged_edit_call"] = c
+            pipe.cache = None
+            same = [_same_images(a, b) for a, b in zip((non_refined, refined), ref["images"])]
+            out.update({"call_seconds": dt, "call_stage_seconds": dict(pipe.stage_times),
+                        "images_identical": [x[0] for x in same],
+                        "images_max_levels": [x[1] for x in same], "msg": msg})
+            pipe.stage_times = None
+            st = store.stats
+            out.update({"evictions": list(st["evictions"]), "swaps": st["swaps"],
+                        "swap_s": st["swap_s"], "swap_bytes": st["swap_bytes"],
+                        "evict_s": st["evict_s"], "load_s": dict(st["load_s"]),
+                        "live_groups_gib": {k: v / 2**30 for k, v in store.live_groups().items()},
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "budget_gib": STAGED_BUDGET / 2**30,
+                        # every group's bytes, live or on the host: the first build of the
+                        # largest runs on top of a full budget
+                        "group_gib": {n: tree_device_bytes(m) / 2**30 for n, m in
+                                      {**{n: m for n, (m, _) in store._host.items()},
+                                       **store._live}.items()}})
+            ok = (out["tokens_identical"] and all(out["images_identical"]) and msg == "SUCCESS!"
+                  and len(st["evictions"]) > 0)
+            if not ok:
+                failures.append(f"staged edit: tokens identical {out['tokens_identical']}, images "
+                                f"identical {out['images_identical']} (max levels "
+                                f"{out['images_max_levels']}), msg {msg!r}, evictions "
+                                f"{st['evictions']}, swaps {st['swaps']}")
+            log(f"staged edit (budget {STAGED_BUDGET:.3g} B = {out['budget_gib']:.2f} GiB): "
+                f"forward_llm {out['forward_llm_seconds']:.3f} s, tokens identical to the resident "
+                f"run {out['tokens_identical']}; __call__ {dt:.3f} s ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in out["call_stage_seconds"].items())
+                + f"), images bit-identical {out['images_identical']}; evictions "
+                f"{len(st['evictions'])} {st['evictions']}, swaps {st['swaps']}, swap_s "
+                f"{st['swap_s']:.3f}, swap_bytes {st['swap_bytes'] / 1e9:.3f} GB, evict_s "
+                f"{st['evict_s']:.3f}; first loads " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in st["load_s"].items())
+                + f" s; peak {out['peak_gib']:.2f} GiB allocated against the "
+                f"{out['budget_gib']:.2f} GiB budget (SAM and GroundingDINO resident outside "
+                f"it); groups " + ", ".join(f"{k} {v:.2f}" for k, v in out["group_gib"].items())
+                + f" GiB [{card}]")
+
+            # ---- phase_serve's 4 edits and caption-only request over the staged pipeline
+            server = serving.PipelineServer(pipe, max_batch=SERVE_BATCH, max_wait_s=0.5)
+            edits, caption_only, server._llm_stage = _served_edits(
+                {"type": "image", "fname": png}, d_img)
+            blocks = ref["blocks"]
+            k1 = EDIT_STEPS * 5 * blocks["unet"] + int(50 * 0.5) * 2 * blocks["refiner"]
+            ev0 = len(store.stats["evictions"])
+            sw0 = {k: store.stats[k] for k in ("swaps", "swap_s", "swap_bytes")}
+            try:
+                results, c, dt = counted(
+                    "staged serve", lambda: [f.result(timeout=900) for f in
+                                             [server.submit(r) for r in edits + [caption_only]]],
+                    {"k1": k1, "k1_by_path": {"wgmma": k1}}, failures)
+            finally:
+                server.stop()
+            out["paths"]["staged_serve"] = c
+            same = [_same_images(r.image, a) for r, a in zip(results, ref["served"])]
+            out["serve"] = {"seconds": dt, "images_identical": [x[0] for x in same],
+                            "images_max_levels": [x[1] for x in same],
+                            "caption_only_none": results[4].image is None,
+                            "evictions": store.stats["evictions"][ev0:],
+                            **{k: store.stats[k] - v for k, v in sw0.items()},
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if not (all(out["serve"]["images_identical"]) and results[4].image is None):
+                failures.append(f"staged serve: images bit-identical to the resident server's "
+                                f"{out['serve']['images_identical']} (max levels "
+                                f"{out['serve']['images_max_levels']}), caption-only None "
+                                f"{results[4].image is None}")
+            log(f"staged serve (phase_serve's 4 edits + 1 caption-only, batch {SERVE_BATCH}, "
+                f"{EDIT_STEPS} + {EDIT_STEPS} steps, refiner 25 of 50): {dt:.3f} s, images "
+                f"bit-identical to the resident server's {out['serve']['images_identical']}, "
+                f"evictions while serving {out['serve']['evictions']}, swaps "
+                f"{out['serve']['swaps']} ({out['serve']['swap_bytes'] / 1e9:.3f} GB in "
+                f"{out['serve']['swap_s']:.3f} s), peak {out['serve']['peak_gib']:.2f} GiB [{card}]")
+
+            # ---- forward_llm again on the int4 LLM restaged from the host
+            if "llm" in store.live_groups():
+                store.evict("llm")
+            sw0 = {k: store.stats[k] for k in ("swaps", "swap_s", "swap_bytes")}
+            _, c, dt = counted("staged forward_llm, LLM restaged", lambda: pipe.forward_llm(
+                inst, media, generator=torch.Generator("cuda").manual_seed(0)),
+                {"k1": k1_llm, "k1_by_path": {"wgmma": k1_llm}, "k2": k2, "k2_by_path": {"mma": k2}},
+                failures)
+            out["paths"]["staged_forward_llm_restaged"] = c
+            again = pipe.last_generate.tokens[0, :steps + 1].tolist()
+            out["restaged_llm"] = {"seconds": dt, "tokens_identical": again == ref["tokens"],
+                                   "llm_live": "llm" in store.live_groups(),
+                                   **{k: store.stats[k] - v for k, v in sw0.items()}}
+            r = out["restaged_llm"]
+            if not (r["tokens_identical"] and r["llm_live"] and r["swaps"] > 0):
+                failures.append(f"staged forward_llm on the restaged LLM: {r}")
+            log(f"staged forward_llm on the LLM restaged from the host: {dt:.3f} s, tokens "
+                f"identical to the resident run {r['tokens_identical']}, swaps {r['swaps']} "
+                f"({r['swap_bytes'] / 1e9:.3f} GB in {r['swap_s']:.3f} s) [{card}]")
+    finally:
+        del pipe, store
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_codecs(feats_dir, failures):
+    """The codec layer at full width: `build_vae("vq-npz")` and `VQVAE` over
+    the features `phase_finetune_tree` wrote; `ClipVisionCodec` at ViT-H/14
+    (random bf16, batch 2: 32 K1 launches, all wgmma, within K1's limit
+    carried through the tower); the VQ-GAN f16 at 256^2 (encode, quantize,
+    decode, then one generator and one discriminator step with Adam (0.5,
+    0.9): finite losses, every trainable weight moved); SpecVQGAN's 1D VQ
+    model on an 80 x 848 mel, the MelGAN vocoder and LPAPS. Float32 for the
+    conv codecs (TF32 off, as the whole script)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.codecs import audio as audio_lib
+    from instructany2pix_tpu_torch.codecs import builder
+    from instructany2pix_tpu_torch.codecs import vqgan as vq_lib
+    from instructany2pix_tpu_torch.codecs import vqgan_train as gan_lib
+    from instructany2pix_tpu_torch.diffusion import ip_adapter as ipa
+    from instructany2pix_tpu_torch.models import clip as clip_lib
+    from instructany2pix_tpu_torch.models import layers as L
+
+    card = card_line()
+    out = {"card": card, "paths": {}}
+
+    def build(make, dtype, seed):
+        with torch.device("meta"):
+            m = make()
+        return L.init_(L.materialize(m, torch.device("cuda"), dtype),
+                       torch.Generator("cuda").manual_seed(seed)).eval().requires_grad_(False)
+
+    # ---- vq-npz over the prepared features
+    files = sorted(f for f in os.listdir(feats_dir) if f.endswith(".npz"))
+    vae = builder.VQVAE("vq-npz", "vq-npz")
+    states = np.stack([vae.processor(os.path.join(feats_dir, f), "image") for f in files])
+    enc = vae({"image": states, "audio": states})
+    npz_ok = (len(files) > 0 and vae.embed_dim_image == vae.embed_dim_audio == 1024
+              and states.shape[-1] == 1024 and np.isfinite(states).all()
+              and all(enc[k][0] is states and enc[k][1] is None for k in ("image", "audio")))
+    out["vq_npz"] = {"files": len(files), "shape": list(states.shape), "ok": npz_ok}
+    if not npz_ok:
+        failures.append(f"vq-npz: {len(files)} feature files, states {states.shape}, passthrough "
+                        f"{npz_ok}")
+    log(f"vq-npz: {len(files)} prepared feature files read by NpzLoader, states "
+        f"{list(states.shape)}, TensorLoader passthrough for both modalities: {npz_ok}")
+
+    # ---- ClipVisionCodec at ViT-H/14
+    vcfg = clip_lib.CLIPVisionConfig.vit_h()
+    vision = build(lambda: clip_lib.CLIPVision(vcfg), torch.bfloat16, 11)
+    codec = builder.ClipVisionCodec(params=vision, cfg=vcfg)
+    rs = np.random.RandomState(12)
+    imgs = [rs.randint(0, 256, (300, 400, 3)).astype(np.uint8),
+            rs.randint(0, 256, (512, 384, 3)).astype(np.uint8)]
+    with torch.inference_mode():
+        pixels = ipa.preprocess_clip_image(imgs, vcfg.image_size)
+        codec.encode_seq(pixels)  # warm
+        (emb, _, _), c, _ = counted("ClipVisionCodec encode", lambda: codec.encode_seq(pixels),
+                                    {"k1": vcfg.num_layers,
+                                     "k1_by_path": {"wgmma": vcfg.num_layers}}, failures)
+        out["paths"]["codec_clip_encode"] = c
+        plain = clip_lib.vision_apply(vision, pixels, vcfg, impl="xla")["image_embeds"].float()
+        moved = _with_limit_moves(clip_lib, lambda: clip_lib.vision_apply(
+            vision, pixels, vcfg, impl="xla")["image_embeds"].float())
+        got = emb[..., 0, 0].float()
+        allowed = (moved - plain).abs().max().item()
+        of_limit = (got - plain).abs().max().item() / allowed
+        ms = time_ms(lambda: codec.encode_seq(pixels), 5)
+    out["clip_codec"] = {"shape": list(emb.shape), "of_limit": of_limit, "ms": ms,
+                         "max_abs_err": (got - plain).abs().max().item()}
+    if not (list(emb.shape) == [2, vcfg.projection_dim, 1, 1] and of_limit <= 1.0
+            and bool(torch.isfinite(got).all())):
+        failures.append(f"ClipVisionCodec: embeds {list(emb.shape)}, {of_limit:.3g} of K1's limit "
+                        f"carried through the tower")
+    log(f"ClipVisionCodec (ViT-H/14, bf16, batch 2): {ms:.2f} ms per encode_seq, embeds "
+        f"{list(emb.shape)}, {of_limit:.3f} of K1's limit carried through the tower [{card}]")
+    del vision, codec
+    torch.cuda.empty_cache()
+
+    # ---- the VQ-GAN f16 at 256^2: encode, quantize, decode, then a GAN step
+    cfg = vq_lib.VQConfig.image_f16()
+    dcfg = gan_lib.DiscConfig()
+    vq = build(lambda: vq_lib.VQModel(cfg), torch.float32, 21)
+    disc = build(lambda: gan_lib.Discriminator(dcfg), torch.float32, 22)
+    gen = torch.Generator("cuda").manual_seed(23)
+    x = torch.rand((VQ_BATCH, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    res = {}
+
+    def code():
+        with torch.no_grad():
+            z = vq_lib.encode_z(vq, x, cfg)
+            zq, idx, _ = vq_lib.quantize(vq, z)
+            return z, idx, vq_lib.decode_z(vq, zq, cfg)
+
+    code()
+    (z, idx, recon), c, res["code_s"] = counted("VQ-GAN f16 encode, quantize, decode", code, {},
+                                                failures)
+    out["paths"]["vqgan_code"] = c
+    vq.requires_grad_(True)
+    disc.requires_grad_(True)
+    before = {n: p.detach().clone() for n, p in [*vq.named_parameters(prefix="vq"),
+                                                 *disc.named_parameters(prefix="disc")]}
+    opt_g = torch.optim.Adam(vq.parameters(), lr=1e-4, betas=(0.5, 0.9))
+    opt_d = torch.optim.Adam(disc.parameters(), lr=1e-4, betas=(0.5, 0.9))
+
+    def step():
+        loss_g, aux = gan_lib.vqgan_generator_loss(vq, disc, x, 0, cfg, dcfg, disc_start=0)
+        opt_g.zero_grad(set_to_none=True)
+        loss_g.backward()
+        opt_g.step()
+        loss_d, _ = gan_lib.vqgan_discriminator_loss(disc, vq, x, 0, cfg, dcfg, disc_start=0)
+        opt_d.zero_grad(set_to_none=True)
+        loss_d.backward()
+        opt_d.step()
+        return loss_g.item(), loss_d.item(), aux["g_loss"].item()
+
+    torch.cuda.reset_peak_memory_stats()
+    (loss_g, loss_d, g_loss), c, res["step_s"] = counted("VQ-GAN f16 generator + discriminator "
+                                                         "step", step, {}, failures)
+    out["paths"]["vqgan_train"] = c
+    still = [n for n, p in [*vq.named_parameters(prefix="vq"), *disc.named_parameters(prefix="disc")]
+             if torch.equal(p.detach(), before[n])]
+    res.update({"z": list(z.shape), "indices": list(idx.shape), "recon": list(recon.shape),
+                "codes_used": int(idx.unique().numel()), "loss_g": loss_g, "loss_d": loss_d,
+                "g_loss": g_loss, "unmoved": still, "weights": len(before),
+                "params_m": sum(p.numel() for p in vq.parameters()) / 1e6,
+                "disc_params_m": sum(p.numel() for p in disc.parameters()) / 1e6,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    out["vqgan"] = res
+    ok = (res["z"] == [VQ_BATCH, 16, 16, cfg.embed_dim] and res["recon"] == [VQ_BATCH, 256, 256, 3]
+          and bool(torch.isfinite(recon).all()) and all(np.isfinite([loss_g, loss_d]))
+          and not still)
+    if not ok:
+        failures.append(f"VQ-GAN f16: z {res['z']}, recon {res['recon']}, losses "
+                        f"{loss_g}/{loss_d}, weights that did not move {still}")
+    log(f"VQ-GAN f16 at 256^2, batch {VQ_BATCH}, float32 ({res['params_m']:.1f} M + disc "
+        f"{res['disc_params_m']:.1f} M parameters): encode, quantize, decode {res['code_s']:.3f} s "
+        f"(z {res['z']}, {res['codes_used']} codes used); one generator + one discriminator step "
+        f"{res['step_s']:.3f} s, losses {loss_g:.4f} / {loss_d:.4f} (adversarial "
+        f"{g_loss:.4f}), {len(before) - len(still)} of {len(before)} weights moved, peak "
+        f"{res['peak_gib']:.2f} GiB [{card}]")
+    del vq, disc, opt_g, opt_d, before, x, z, idx, recon
+    torch.cuda.empty_cache()
+
+    # ---- SpecVQGAN's 1D VQ model, the MelGAN vocoder and LPAPS on an 80 x 848 mel
+    acfg, voc_cfg, lp_cfg = audio_lib.VQ1DConfig(), audio_lib.VocoderConfig(), audio_lib.LPAPSConfig()
+    vq1 = build(lambda: audio_lib.VQ1D(acfg), torch.float32, 24)
+    voc = build(lambda: audio_lib.Vocoder(voc_cfg), torch.float32, 25)
+    with torch.device("meta"):
+        lp = audio_lib.LPAPS(lp_cfg)
+    lp = audio_lib.lpaps_init_(L.materialize(lp, torch.device("cuda"), torch.float32),
+                               torch.Generator("cuda").manual_seed(26)).eval()
+    mel = torch.rand((1, MEL_FRAMES, acfg.in_channels), generator=gen, device="cuda") * 2 - 1
+    codec1 = audio_lib.VQ1DCodec(vq1, acfg)
+
+    def audio():
+        with torch.no_grad():
+            zq, idx1, n = codec1.encode_seq(mel)
+            rec = codec1.decode_seq(idx1)
+            wav = audio_lib.vocoder_apply(voc, rec, voc_cfg)
+            dist = audio_lib.lpaps_loss(lp, mel.transpose(1, 2), rec.transpose(1, 2))
+            return zq, idx1, rec, wav, dist
+
+    audio()
+    (zq, idx1, rec, wav, dist), c, a_s = counted("VQ1D + MelGAN + LPAPS", audio, {}, failures)
+    out["paths"]["audio_codecs"] = c
+    out["audio"] = {"seconds": a_s, "codes": list(idx1.shape), "mel": list(rec.shape),
+                    "wav": list(wav.shape), "lpaps": dist.tolist()}
+    ok = (list(idx1.shape) == [1, MEL_FRAMES // 4] and list(rec.shape) == list(mel.shape)
+          and list(wav.shape) == [1, MEL_FRAMES * voc_cfg.hop_length]
+          and all(bool(torch.isfinite(t).all()) for t in (rec, wav, dist))
+          and float(dist.min()) >= 0)
+    if not ok:
+        failures.append(f"audio codecs: codes {list(idx1.shape)}, mel {list(rec.shape)}, wav "
+                        f"{list(wav.shape)}, LPAPS {dist.tolist()}")
+    log(f"VQ1D (80 x {MEL_FRAMES} mel -> {idx1.shape[1]} codes -> mel), MelGAN vocoder -> "
+        f"{wav.shape[1]} samples, LPAPS {dist.tolist()}: {a_s:.3f} s, float32 [{card}]")
+    del vq1, voc, lp
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mpt(failures):
+    """MPT-7B (`MPTConfig.mpt_7b()`, bf16, random from a seed): a prefill of
+    MPT_PREFILL tokens and MPT_DECODE cached decode steps against one full
+    forward over all the tokens. The limit is twice the bf16 full forward's
+    largest distance from the same forward in float32 (the model cast after
+    the bf16 runs): two bf16 computations of the same logits, each that far
+    from float32 at most, differ by at most twice it."""
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import mpt as mpt_lib
+
+    card = card_line()
+    cfg = mpt_lib.MPTConfig.mpt_7b()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("meta"):
+        m = mpt_lib.MPT(cfg)
+    t0 = time.time()
+    m = mpt_lib.init_(L.materialize(m, torch.device("cuda"), torch.bfloat16),
+                      torch.Generator("cuda").manual_seed(31)).eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    out = {"card": card, "init_seconds": time.time() - t0, "paths": {},
+           "weights_gib": _weight_bytes(m) / 2**30}
+    n = MPT_PREFILL + MPT_DECODE
+    ids = torch.as_tensor(np.random.RandomState(32).randint(0, cfg.vocab_size, (1, n)),
+                          device="cuda")
+
+    def cached():
+        cache = mpt_lib.init_cache(cfg, 1, n, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = mpt_lib.forward(m, cfg, input_ids=ids[:, :MPT_PREFILL], cache=cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        logits, step_ms = [o["logits"].float()], []
+        for t in range(MPT_PREFILL, n):
+            t0 = time.perf_counter()
+            o = mpt_lib.forward(m, cfg, input_ids=ids[:, t:t + 1], cache=o["cache"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(o["logits"].float())
+        return torch.cat(logits, dim=1), prefill_ms, step_ms, o["cache"].length
+
+    with torch.inference_mode():
+        cached()  # warm
+        (inc, prefill_ms, step_ms, length), c, cached_s = counted("MPT-7B prefill + cached decode",
+                                                                  cached, {}, failures)
+        out["paths"]["mpt_decode"] = c
+        full = mpt_lib.forward(m, cfg, input_ids=ids)["logits"].float()
+        t0 = time.perf_counter()
+        mpt_lib.forward(m, cfg, input_ids=ids)
+        torch.cuda.synchronize()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        out["peak_bf16_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        m.float()  # the float32 reference: the same weights, cast
+        full32 = mpt_lib.forward(m, cfg, input_ids=ids)["logits"]
+    limit = 2 * (full - full32).abs().max().item()
+    err = (inc - full).abs().max().item()
+    err_decode = (inc[:, MPT_PREFILL:] - full[:, MPT_PREFILL:]).abs().max().item()
+    argmax_same = float((inc.argmax(-1) == full.argmax(-1)).float().mean())
+    step_ms = sorted(step_ms)
+    out.update({"prefill_ms": prefill_ms, "decode_step_ms_median": step_ms[len(step_ms) // 2],
+                "decode_step_ms_range": [step_ms[0], step_ms[-1]], "full_forward_ms": full_ms,
+                "cached_seconds": cached_s, "max_abs_err": err, "max_abs_err_decode": err_decode,
+                "limit": limit, "of_limit": err / limit, "argmax_agree": argmax_same,
+                "logit_scale": full.abs().max().item(), "cache_length": length})
+    del m, full, full32, inc
+    torch.cuda.empty_cache()
+    ok = (length == n and err <= limit and np.isfinite(err) and np.isfinite(limit))
+    if not ok:
+        failures.append(f"MPT-7B: cached logits off the full forward by {err:.4g} against a limit "
+                        f"of {limit:.4g}, cache length {length} (expected {n})")
+    log(f"MPT-7B (bf16, {out['weights_gib']:.2f} GiB, random): prefill {MPT_PREFILL} tokens "
+        f"{prefill_ms:.2f} ms, decode step median {out['decode_step_ms_median']:.2f} ms of "
+        f"{MPT_DECODE} (min {step_ms[0]:.2f}, max {step_ms[-1]:.2f}), full forward over {n} "
+        f"{full_ms:.2f} ms; cached against full logits max |diff| {err:.4g} (decode steps "
+        f"{err_decode:.4g}) = {err / limit:.3f} of the limit {limit:.4g} (twice the bf16 full "
+        f"forward's distance from float32); argmax agree {argmax_same:.4f} [{card}]")
+    return out
+
+
+def phase_clip_score(failures):
+    """`clip_score` at ViT-H/14 (text and vision towers random, bf16) on two
+    images and two prompts with the crc32 word tokenizer: finite scores in
+    [0, 100]; the vision tower's 32 attentions on K1 (wgmma), the text
+    tower's plain."""
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.models import clip as clip_lib
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.utils import clip_score as cs
+
+    card = card_line()
+    tcfg, vcfg = clip_lib.CLIPTextConfig.vit_h(), clip_lib.CLIPVisionConfig.vit_h()
+    towers = []
+    for make, seed in ((lambda: clip_lib.CLIPText(tcfg), 41), (lambda: clip_lib.CLIPVision(vcfg), 42)):
+        with torch.device("meta"):
+            m = make()
+        towers.append(L.init_(L.materialize(m, torch.device("cuda"), torch.bfloat16),
+                              torch.Generator("cuda").manual_seed(seed)).eval()
+                      .requires_grad_(False))
+    tok = cs._HashWordTokenizer(tcfg.vocab_size, tcfg.eos_token_id)
+    rs = np.random.RandomState(43)
+    imgs = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8),
+            rs.randint(0, 256, (512, 512, 3)).astype(np.uint8)]
+    prompts = ["a photo of a cat in an antique shop", "a red clock on a wooden shelf"]
+
+    def score():
+        return cs.clip_score(towers[0], tcfg, tok, towers[1], vcfg, imgs, prompts)
+
+    score()  # warm
+    scores, c, dt = counted("clip_score", score, {"k1": vcfg.num_layers,
+                                                  "k1_by_path": {"wgmma": vcfg.num_layers}},
+                            failures)
+    ms = time_ms(score, 3, warmup=0)
+    out = {"card": card, "scores": scores.tolist(), "seconds": dt, "ms": ms,
+           "paths": {"clip_score": c}}
+    if not (scores.shape == (2,) and np.isfinite(scores).all()
+            and ((scores >= 0) & (scores <= 100)).all()):
+        failures.append(f"clip_score: {scores}")
+    log(f"clip_score (ViT-H/14 text and vision, bf16, random; 2 images, 2 prompts): {ms:.2f} ms, "
+        f"scores {scores.tolist()}, K1 {c['k1']} {c['k1_by_path']} [{card}]")
+    del towers
+    torch.cuda.empty_cache()
+    return out
+
+
+class _NoTF32:
+    """TF32 off for matmuls and cuDNN while the block runs, restored after."""
+
+    def __enter__(self):
+        import torch
+
+        self.prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.prev
+
+
+def phase_tiny_slice13(failures):
+    """The tiny slice-13 modules in float32 (TF32 off), card against CPU on
+    the same weights: the VQ-GAN and the 1D VQ model (code indices
+    identical, outputs within TINY_REL), MPT (prefill and cached decode
+    logits within TINY_REL); and the tiny edit through a `StagedParams`
+    store whose budget evicts between stages, bit-identical on the card to
+    the edit without one."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from instructany2pix_tpu_torch.codecs import audio as audio_lib
+    from instructany2pix_tpu_torch.codecs import vqgan as vq_lib
+    from instructany2pix_tpu_torch.core.dtypes import FP32
+    from instructany2pix_tpu_torch.core.staging import StagedParams
+    from instructany2pix_tpu_torch.models import layers as L
+    from instructany2pix_tpu_torch.models import mpt as mpt_lib
+    from instructany2pix_tpu_torch.pipeline import InstructAny2PixPipeline, PipelineConfig
+
+    out = {"paths": {}}
+
+    def pair(make, seed, init=L.init_):
+        with torch.device("meta"):
+            m = make()
+        cpu = init(L.materialize(m, torch.device("cpu"), torch.float32),
+                   torch.Generator().manual_seed(seed)).eval().requires_grad_(False)
+        return cpu, copy.deepcopy(cpu).cuda()
+
+    with _NoTF32(), torch.no_grad():
+        rs = np.random.RandomState(61)
+        cfg = vq_lib.VQConfig.tiny()
+        cpu, gpu = pair(lambda: vq_lib.VQModel(cfg), 62)
+        x = torch.as_tensor(rs.randn(2, 16, 16, 3).astype(np.float32))
+        (lc, ac), (lg, ag) = (vq_lib.vq_losses(m, x.to(d), cfg) for m, d in ((cpu, "cpu"), (gpu, "cuda")))
+        out["vqgan"] = {"indices_identical": bool(torch.equal(ac["indices"], ag["indices"].cpu())),
+                        "recon_rel": _rel(ag["recon"], ac["recon"]), "loss_rel": _rel(lg, lc)}
+        acfg = audio_lib.VQ1DConfig.tiny()
+        cpu, gpu = pair(lambda: audio_lib.VQ1D(acfg), 63)
+        mel = torch.as_tensor(rs.randn(2, 12, acfg.in_channels).astype(np.float32))
+        (lc, ac), (lg, ag) = (audio_lib.vq1d_losses(m, mel.to(d), acfg)
+                              for m, d in ((cpu, "cpu"), (gpu, "cuda")))
+        out["vq1d"] = {"indices_identical": bool(torch.equal(ac["indices"], ag["indices"].cpu())),
+                       "recon_rel": _rel(ag["recon"], ac["recon"]), "loss_rel": _rel(lg, lc)}
+        mcfg = mpt_lib.MPTConfig.tiny()
+        cpu, gpu = pair(lambda: mpt_lib.MPT(mcfg), 64, init=mpt_lib.init_)
+        ids = torch.as_tensor(rs.randint(0, mcfg.vocab_size, (2, 12)))
+        logits = []
+        for m, d in ((cpu, "cpu"), (gpu, "cuda")):
+            cache = mpt_lib.init_cache(mcfg, 2, 16, device=d)
+            o = mpt_lib.forward(m, mcfg, input_ids=ids[:, :8], cache=cache)
+            steps = [o["logits"]]
+            for t in range(8, 12):
+                o = mpt_lib.forward(m, mcfg, input_ids=ids[:, t:t + 1], cache=o["cache"])
+                steps.append(o["logits"])
+            logits.append(torch.cat(steps, 1))
+        out["mpt"] = {"logits_rel": _rel(logits[1], logits[0])}
+    checks = [out["vqgan"]["indices_identical"], out["vq1d"]["indices_identical"]] + [
+        v <= TINY_REL for k in ("vqgan", "vq1d", "mpt") for n, v in out[k].items()
+        if n.endswith("_rel")]
+    if not all(checks):
+        failures.append(f"tiny slice 13, card against CPU: {out}")
+    log(f"tiny slice 13, card against CPU (float32, TF32 off): VQ-GAN {out['vqgan']}, VQ1D "
+        f"{out['vq1d']}, MPT {out['mpt']} (limit {TINY_REL} relative)")
+
+    # ---- the tiny staged edit on the card, against the same edit unstaged
+    with _NoTF32(), tempfile.TemporaryDirectory() as d:
+        from PIL import Image
+
+        png = f"{d}/img.png"
+        Image.fromarray(np.random.RandomState(65).randint(0, 255, (80, 96, 3), np.uint8)).save(png)
+        media = [{"type": "image", "fname": png}]
+        resident = InstructAny2PixPipeline(PipelineConfig.tiny(), policy=FP32, seed=0)
+        store = StagedParams({k: (lambda v=v: copy.deepcopy(v))
+                              for k, v in resident.models.items()}, budget_bytes=2048)
+        staged = InstructAny2PixPipeline(resident.cfg, policy=FP32, models=store)
+        dim = resident.cfg.llm.image_codec_dim
+        outs = []
+        for pipe in (resident, staged):
+            rk = np.random.RandomState(66)
+            pipe.cache = (rk.randn(1, dim).astype(np.float32), rk.randn(dim).astype(np.float32),
+                          " a caption", png, dict(all_objs=["cat"], extra_embeds=rk.randn(
+                              1, dim).astype(np.float32), extra_idx=np.array([0])))
+            outs.append(pipe("edit <video>", media, num_inference_steps=2, refinement=0.3,
+                             seed=5, use_cache=True, subject_strength=0.3))
+            pipe.cache = None
+        same = [np.array_equal(a, b) for a, b in zip(outs[0][:2], outs[1][:2])]
+        out["staged_edit"] = {"identical": same, "evictions": len(store.stats["evictions"]),
+                              "swaps": store.stats["swaps"]}
+        del resident, staged, store
+    if not (all(same) and out["staged_edit"]["swaps"] > 0):
+        failures.append(f"tiny staged edit on the card: {out['staged_edit']}")
+    log(f"tiny staged edit on the card (budget 2048 B): images bit-identical to the unstaged edit "
+        f"{same}, {out['staged_edit']['evictions']} evictions, {out['staged_edit']['swaps']} swaps")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4949,6 +5599,15 @@ def main(argv=None) -> int:
     finetune = phase_finetune(feats_dir, failures)
     t_finetune = time.time() - t0
     t0 = time.time()
+    codecs = phase_codecs(feats_dir, failures)
+    t_codecs = time.time() - t0
+    t0 = time.time()
+    mpt = phase_mpt(failures)
+    t_mpt = time.time() - t0
+    t0 = time.time()
+    score = phase_clip_score(failures)
+    t_score = time.time() - t0
+    t0 = time.time()
     tiny = phase_tiny_reference(failures)
     t_tiny = time.time() - t0
     t0 = time.time()
@@ -4956,15 +5615,22 @@ def main(argv=None) -> int:
     t_tiny_train = time.time() - t0
     t0 = time.time()
     tiny_s12 = phase_tiny_adapters(failures)
+    t_tiny_s12 = time.time() - t0
+    t0 = time.time()
+    tiny_s13 = phase_tiny_slice13(failures)
     seconds = {"k1_checks": t_k1, "k2_checks": t_k2, "k3_checks": t_k3, "k4_checks": t_k4,
                "tokenizer_model": t_tok, "full_width": t_full, "train": t_train,
                "adapters": full["adapters_seconds"], "finetune_tree": full["finetune_tree_seconds"],
-               "finetune": t_finetune, "tiny": t_tiny, "tiny_train": t_tiny_train,
-               "tiny_adapters": time.time() - t0, "total": time.time() - t_start}
+               "staged": full["staged_seconds"], "finetune": t_finetune, "codecs": t_codecs,
+               "mpt": t_mpt, "clip_score": t_score, "tiny": t_tiny, "tiny_train": t_tiny_train,
+               "tiny_adapters": t_tiny_s12, "tiny_slice13": time.time() - t0,
+               "total": time.time() - t_start}
     edit, subject, serve = full["edit"], full["subject"], full["serve"]
     sw = full["switches"]
-    # slice 12's paths, each with every counter read (phase_adapters, phase_finetune*)
-    s12 = {**full["adapters"]["paths"], **full["finetune_tree"]["paths"], **finetune["paths"]}
+    # slice 12's and slice 13's paths, each with every counter read (phase_adapters,
+    # phase_finetune*, phase_staged, phase_codecs, phase_mpt, phase_clip_score)
+    s12 = {**full["adapters"]["paths"], **full["finetune_tree"]["paths"], **finetune["paths"],
+           **full["staged"]["paths"], **codecs["paths"], **mpt["paths"], **score["paths"]}
 
     head = next(r for r in rows if r["dtype"] == "bfloat16")
     k1_paths = {"text2img": sum(r["k1_launches"] for r in full["requests"]),
@@ -5031,6 +5697,8 @@ def main(argv=None) -> int:
         "clip_encoder": {k: sw[k] for k in ("clip_encode_ms", "clip_encode_plain_ms",
                                             "clip_max_abs_err", "clip_of_limit",
                                             "clip_of_limit_rms")},
+        "clip_vision_codec": codecs["clip_codec"],
+        "clip_score_ms": score["ms"],
     }
     qhead = next(r for r in qrows if r["label"] == "7B qkv + norm" and r["m"] == 1)
     k2 = {
@@ -5201,13 +5869,14 @@ def main(argv=None) -> int:
     kernels = [k1, k2, k3, k4a, k4b]
     result = {"card": card, "k2_shapes": qrows, "k4": k4, "full_width": full, "train": train,
               "finetune": finetune, "tiny_reference": tiny, "tiny_train": tiny_train,
-              "tiny_adapters": tiny_s12, "tokenizer_model": tok_model, "seconds": seconds}
+              "tiny_adapters": tiny_s12, "tokenizer_model": tok_model, "codecs": codecs,
+              "mpt": mpt, "clip_score": score, "tiny_slice13": tiny_s13, "seconds": seconds}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "kernels": kernels}, f, indent=1, default=str)
     summary = {k: v for k, v in full.items()
                if k not in ("edit", "subject", "serve", "switches", "unet_step_profile", "adapters",
-                            "finetune_tree")}
+                            "finetune_tree", "staged")}
     log(json.dumps({"full_width": summary, "tiny_reference": tiny, "seconds": seconds}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "step_profile"},
                     "tiny_train": tiny_train}, default=str))
@@ -5220,6 +5889,11 @@ def main(argv=None) -> int:
     log(json.dumps({"adapters": full["adapters"], "finetune_tree": full["finetune_tree"],
                     "finetune": {k: v for k, v in finetune.items() if k != "paths"},
                     "tiny_adapters": tiny_s12}, default=str))
+    log(json.dumps({"staged": {k: v for k, v in full["staged"].items() if k != "paths"},
+                    "codecs": {k: v for k, v in codecs.items() if k != "paths"},
+                    "mpt": {k: v for k, v in mpt.items() if k != "paths"},
+                    "clip_score": {k: v for k, v in score.items() if k != "paths"},
+                    "tiny_slice13": tiny_s13}, default=str))
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

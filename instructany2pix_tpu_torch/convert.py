@@ -4,6 +4,9 @@ The port's modules carry the JAX trees' key names, so a tree maps onto a
 module key for key. Per leaf:
   * linear `w` is stored input-major (in, out) and becomes (out, in);
   * conv `w` is stored HWIO and becomes OIHW;
+  * conv1d `w` is stored (k, in, out) and becomes (out, in, k); a
+    transposed conv1d's, stored pre-flipped in that orientation, becomes
+    PyTorch's (in, out, k);
   * norm `g`/`b` become `weight`/`bias`, embedding `w` becomes `weight`;
   * free arrays (IP-Adapter's `raw_embed`, ViT tokens) copy as they are;
   * weight-only quantized linears (`w_q`/`w_q4` with `scale`/`gscale`)
@@ -17,11 +20,13 @@ re-join into `ff_in` (value half, then gate half). Loading is strict:
 a tree key without a counterpart, a shape mismatch or a module parameter
 the tree leaves unset raises.
 
+Lists in a tree (LPAPS's `convs`, `lins`) load into `nn.ModuleList`s.
 Trees may hold numpy arrays or anything `numpy.asarray` accepts. Built
 modules are frozen for inference (`eval`, no gradients), except the
 trainer's `llm(..., trainable=True)`; `to_tree`
 maps a float module back to a numpy tree in the JAX layout (adapters
-included), to compare parameters after training steps.
+included), or its gradients (`grad=True`), to compare parameters and
+gradients after training steps.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .codecs import audio as audio_lib
+from .codecs import vqgan as vqgan_lib
+from .codecs import vqgan_train as vqgan_train_lib
 from .diffusion import ip_adapter as ipa
 from .diffusion import ip_adapter_faceid as faceid_lib
 from .diffusion import resampler as resampler_lib
@@ -44,6 +52,7 @@ from .models import clip as clip_lib
 from .models import imagebind as imagebind_lib
 from .models import layers as L
 from .models import llama as llama_lib
+from .models import mpt as mpt_lib
 from .models import unet as unet_lib
 from .models import vae as vae_lib
 from .ops import quant as Q
@@ -133,6 +142,18 @@ def _load(module: nn.Module, tree: dict, path: str, seen: set) -> None:
             _put(child.weight, np.asarray(val["w"]).transpose(3, 2, 0, 1), name + ".w", seen)
             if "b" in val:
                 _put(child.bias, val["b"], name + ".b", seen)
+        elif isinstance(child, nn.ConvTranspose1d):
+            # stored pre-flipped in (k, cin, cout) conv orientation
+            _leaf_keys(val, {"w", "b"}, name)
+            w = np.ascontiguousarray(np.flip(np.asarray(val["w"]), axis=0).transpose(1, 2, 0))
+            _put(child.weight, w, name + ".w", seen)
+            if "b" in val:
+                _put(child.bias, val["b"], name + ".b", seen)
+        elif isinstance(child, nn.Conv1d):
+            _leaf_keys(val, {"w", "b"}, name)
+            _put(child.weight, np.asarray(val["w"]).transpose(2, 1, 0), name + ".w", seen)
+            if "b" in val:
+                _put(child.bias, val["b"], name + ".b", seen)
         elif isinstance(child, (nn.LayerNorm, nn.GroupNorm)):
             _leaf_keys(val, {"g", "b"}, name)
             _put(child.weight, val["g"], name + ".g", seen)
@@ -142,6 +163,8 @@ def _load(module: nn.Module, tree: dict, path: str, seen: set) -> None:
             _put(child.weight, val["w"], name + ".w", seen)
         elif isinstance(child, nn.Module) and isinstance(val, dict):
             _load(child, val, name + ".", seen)
+        elif isinstance(child, nn.ModuleList) and isinstance(val, (list, tuple)):
+            _load(child, {str(i): v for i, v in enumerate(val)}, name + ".", seen)
         else:
             raise KeyError(f"{name} has no counterpart in {type(module).__name__}")
 
@@ -240,6 +263,40 @@ def gdino(tree, cfg: gdino_lib.GDinoConfig, device="cpu", dtype=torch.float32) -
     return build(_meta(gdino_lib.GDino, cfg), tree, device, dtype)
 
 
+def clip_vision(tree, cfg: clip_lib.CLIPVisionConfig, device="cpu",
+                dtype=torch.float32) -> clip_lib.CLIPVision:
+    return build(_meta(clip_lib.CLIPVision, cfg), tree, device, dtype)
+
+
+def vqgan(tree, cfg: vqgan_lib.VQConfig, device="cpu", dtype=torch.float32) -> vqgan_lib.VQModel:
+    return build(_meta(vqgan_lib.VQModel, cfg), tree, device, dtype)
+
+
+def vq1d(tree, cfg: audio_lib.VQ1DConfig, device="cpu", dtype=torch.float32) -> audio_lib.VQ1D:
+    return build(_meta(audio_lib.VQ1D, cfg), tree, device, dtype)
+
+
+def vocoder(tree, cfg: audio_lib.VocoderConfig, device="cpu",
+            dtype=torch.float32) -> audio_lib.Vocoder:
+    return build(_meta(audio_lib.Vocoder, cfg), tree, device, dtype)
+
+
+def lpaps(tree, cfg: audio_lib.LPAPSConfig, device="cpu", dtype=torch.float32) -> audio_lib.LPAPS:
+    """LPAPS with as many scaling statistics as the tree's `shift`."""
+    with torch.device("meta"):
+        m = audio_lib.LPAPS(cfg, n_stats=int(np.asarray(tree["shift"]).size))
+    return build(m, tree, device, dtype)
+
+
+def discriminator(tree, cfg: vqgan_train_lib.DiscConfig, device="cpu",
+                  dtype=torch.float32) -> vqgan_train_lib.Discriminator:
+    return build(_meta(vqgan_train_lib.Discriminator, cfg), tree, device, dtype)
+
+
+def mpt(tree, cfg: mpt_lib.MPTConfig, device="cpu", dtype=torch.float32) -> mpt_lib.MPT:
+    return build(_meta(mpt_lib.MPT, cfg), tree, device, dtype)
+
+
 def _qlinear_empty(node: dict, device, dtype) -> Q.QLinear:
     """A QLinear with buffers shaped like a quantized tree node (int8
     bytes, float32 scales, the bias in `dtype`), to be filled by `_load`."""
@@ -305,38 +362,58 @@ def llm(tree, cfg: mm_lib.Any2PixLMConfig, device="cpu", dtype=torch.float32,
     return _build_llama_like(m, m.llama, tree, tree["llama"], device, dtype, trainable)
 
 
-def to_tree(module: nn.Module) -> Dict[str, Any]:
-    """A float LLM's parameters as a numpy tree in the JAX layout, the
-    inverse of `load_tree` for linears (`w` input-major, `b`), embeddings
-    (`w`) and free parameters such as RMSNorm gains (`g`)."""
+def to_tree(module: nn.Module, grad: bool = False) -> Dict[str, Any]:
+    """A float module's parameters (or, with `grad`, their gradients) as a
+    numpy tree in the JAX layout, the inverse of `load_tree` for linears
+    (`w` input-major, `b`), convolutions (HWIO; conv1d (k, in, out), a
+    transposed one pre-flipped), norms (`g`, `b`), embeddings (`w`) and free
+    parameters such as RMSNorm gains (`g`). A parameter without a gradient
+    maps to zeros."""
 
     def arr(t):
+        if grad:
+            t = t.grad if t.grad is not None else torch.zeros_like(t)
         return t.detach().float().cpu().numpy()
+
+    def wb(m, w):
+        out = {"w": np.ascontiguousarray(w)}
+        if m.bias is not None:
+            out["b"] = arr(m.bias)
+        return out
 
     if isinstance(module, Q.QLinear):
         raise TypeError("to_tree maps float modules only")
     if isinstance(module, nn.Linear):
-        out = {"w": arr(module.weight).T.copy()}
-        if module.bias is not None:
-            out["b"] = arr(module.bias)
+        out = wb(module, arr(module.weight).T)
         if L.has_lora(module):
             out.update(lora_a=arr(module.lora_a).T.copy(), lora_b=arr(module.lora_b).T.copy(),
-                       lora_scale=arr(module.lora_scale))
+                       lora_scale=module.lora_scale.detach().float().cpu().numpy())
         return out
+    if isinstance(module, nn.Conv2d):
+        return wb(module, arr(module.weight).transpose(2, 3, 1, 0))
+    if isinstance(module, nn.ConvTranspose1d):
+        return wb(module, np.flip(arr(module.weight).transpose(2, 0, 1), axis=0))
+    if isinstance(module, nn.Conv1d):
+        return wb(module, arr(module.weight).transpose(2, 1, 0))
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+        return {"g": arr(module.weight), "b": arr(module.bias)}
     if isinstance(module, nn.Embedding):
         return {"w": arr(module.weight)}
     out = {n: arr(p) for n, p in module.named_parameters(recurse=False)}
     for n, child in module.named_children():
-        sub = to_tree(child)
+        sub = to_tree(child, grad)
         if sub:
             out[n] = sub
     return out
 
 
 def to_numpy(tree: Any) -> Any:
-    """Nested dict of arrays (JAX or numpy) → nested dict of numpy arrays."""
+    """Nested dicts and lists of arrays (JAX or numpy) → the same of numpy
+    arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
     return np.asarray(tree)
 
 

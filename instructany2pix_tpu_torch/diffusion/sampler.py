@@ -28,8 +28,12 @@ def encode_prompt_sdxl(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (prompt_embeds (B, 77, 768+1280), pooled (B, 1280)): penultimate
     hidden states of both encoders; pooled from encoder 2's projection."""
-    o1 = clip_lib.text_apply(text1_params, ids1, text1_cfg)
-    o2 = clip_lib.text_apply(text2_params, ids2, text2_cfg)
+    return sdxl_prompt_embeds(clip_lib.text_apply(text1_params, ids1, text1_cfg),
+                              clip_lib.text_apply(text2_params, ids2, text2_cfg))
+
+
+def sdxl_prompt_embeds(o1: dict, o2: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`encode_prompt_sdxl` from the two encoders' `text_apply` outputs."""
     h1 = o1["hidden_states"][-2]
     h = torch.cat([h1, o2["hidden_states"][-2].to(h1.device)], dim=-1)
     pooled = o2.get("text_embeds", o2["pooled"])

@@ -25,6 +25,10 @@ device holds a float copy of the whole model.
 `times`, where a function takes it, accumulates seconds under "read"
 (opening files and moving tensors to the device), "cast" and "quantize".
 Orbax roots (the JAX package's converted checkpoints) are not read.
+
+`staged_models_from_root` builds the same modules lazily, group by group,
+into a `core.staging.StagedParams` store under a device-byte budget, for a
+card that cannot hold them all.
 """
 
 from __future__ import annotations
@@ -203,27 +207,38 @@ def load_clip_text(path: str, cfg: clip_lib.CLIPTextConfig, device, dtype,
     return build(lambda: clip_lib.CLIPText(cfg), tensors, device, dtype, path, times)
 
 
+def load_clip_vision(path: str, cfg: clip_lib.CLIPVisionConfig, device, dtype,
+                     times=None) -> clip_lib.CLIPVision:
+    """An HF `CLIPVisionModelWithProjection` directory (the IP-Adapter's
+    `sdxl/image_encoder`)."""
+    tensors = clip_lib.vision_keymap().to_port(_read_dir(path, times), what=path)
+    return build(lambda: clip_lib.CLIPVision(cfg), tensors, device, dtype, path, times)
+
+
+def _imagebind_modality(mapped: Dict[str, torch.Tensor], modality: str,
+                        cfg: imagebind_lib.ViTConfig, device, dtype, path: str, times=None):
+    pre = f"{modality}."
+    t = {n[len(pre):]: v for n, v in mapped.items() if n.startswith(pre)}
+    if "pos_embed" not in t:
+        raise KeyError(f"{path}: no {modality} modality")
+
+    def make():
+        return imagebind_lib.ViT(cfg, num_patches=t["pos_embed"].shape[1] - 1,
+                                 bias_kv="block_0.bias_k" in t,
+                                 patch_norm="patch_norm.weight" in t,
+                                 pre_ln="pre_ln.weight" in t)
+
+    return build(make, t, device, dtype, f"{path} ({modality})", times)
+
+
 def load_imagebind(path: str, vision_cfg: imagebind_lib.ViTConfig,
                    audio_cfg: imagebind_lib.ViTConfig, device, dtype, times=None):
     """(vision, audio) from `imagebind_huge.pth`. The token count, the
     audio stem's LayerNorm, the pre-trunk LayerNorm and `bias_k`/`bias_v`
     follow the file."""
     mapped = imagebind_lib.file_keymap().to_port(read(path, times), what=path)
-    out = []
-    for modality, cfg in (("vision", vision_cfg), ("audio", audio_cfg)):
-        pre = f"{modality}."
-        t = {n[len(pre):]: v for n, v in mapped.items() if n.startswith(pre)}
-        if "pos_embed" not in t:
-            raise KeyError(f"{path}: no {modality} modality")
-
-        def make(cfg=cfg, t=t):
-            return imagebind_lib.ViT(cfg, num_patches=t["pos_embed"].shape[1] - 1,
-                                     bias_kv="block_0.bias_k" in t,
-                                     patch_norm="patch_norm.weight" in t,
-                                     pre_ln="pre_ln.weight" in t)
-
-        out.append(build(make, t, device, dtype, f"{path} ({modality})", times))
-    return tuple(out)
+    return tuple(_imagebind_modality(mapped, modality, cfg, device, dtype, path, times)
+                 for modality, cfg in (("vision", vision_cfg), ("audio", audio_cfg)))
 
 
 def load_pipeline_models(cfg, ckpt: str, llm_folder: str, device, dtype: torch.dtype,
@@ -254,6 +269,70 @@ def load_pipeline_models(cfg, ckpt: str, llm_folder: str, device, dtype: torch.d
         os.path.join(ckpt, "imagebind_huge.pth"), cfg.imagebind_vision, cfg.imagebind_audio,
         device, dtype, times)
     return models
+
+
+def staged_models_from_root(cfg, ckpt: str, llm_folder: str = "llm-retrained", device=None,
+                            dtype: torch.dtype = torch.bfloat16, quant_bits: Optional[int] = None,
+                            budget_bytes: float = 12.5e9, pin: tuple = ()):
+    """A `core.staging.StagedParams` store over a reference-layout root (the
+    JAX `staged_params_from_root`): each group's factory runs this module's
+    loader for it on first access, and groups evict least recently used
+    under `budget_bytes` and restage from the host. Groups whose files are
+    absent have no factory. The base UNet carries the IP-Adapter's
+    cross-attention weights and serves inpainting (`inpaint_unet` is an
+    alias of `unet`). ImageBind's two modalities are two groups, each read
+    from `imagebind_huge.pth`."""
+    from .core.device import resolve_device
+    from .core.staging import StagedParams
+
+    dev = resolve_device(device)
+    sdxl = os.path.join(ckpt, "sdxl-base")
+    ip_path = os.path.join(ckpt, IP_ADAPTER)
+    ib_path = os.path.join(ckpt, "imagebind_huge.pth")
+
+    def unet():
+        ip_attn, _ = load_ip_adapter(ip_path, cfg.unet)
+        return load_unet(os.path.join(sdxl, "unet"), cfg.unet, dev, dtype, ip_attn)
+
+    def image_proj():
+        _, proj = load_ip_adapter(ip_path, cfg.unet)
+        return build(lambda: ipa.ImageProj(cfg.image_proj), proj, dev, dtype, IP_ADAPTER)
+
+    def imagebind(modality, mcfg):
+        def make():
+            mapped = imagebind_lib.file_keymap().to_port(read(ib_path), what=ib_path)
+            return _imagebind_modality(mapped, modality, mcfg, dev, dtype, ib_path)
+
+        return make
+
+    def text(path, tcfg):
+        return lambda: load_clip_text(path, tcfg, dev, dtype)
+
+    groups = {
+        "llm": (os.path.join(ckpt, llm_folder),
+                lambda: load_llm(os.path.join(ckpt, llm_folder), cfg.llm, dev, dtype, quant_bits)),
+        "prior": (os.path.join(ckpt, "prior", "model.bin"),
+                  lambda: load_prior(os.path.join(ckpt, "prior", "model.bin"), cfg.prior, dev,
+                                     dtype)),
+        "vae": (os.path.join(sdxl, "vae"),
+                lambda: load_vae(os.path.join(sdxl, "vae"), cfg.vae, dev, dtype)),
+        "text1": (os.path.join(sdxl, "text_encoder"),
+                  text(os.path.join(sdxl, "text_encoder"), cfg.text1)),
+        "text2": (os.path.join(sdxl, "text_encoder_2"),
+                  text(os.path.join(sdxl, "text_encoder_2"), cfg.text2)),
+        "refiner": (os.path.join(ckpt, "sdxl-refiner", "unet"),
+                    lambda: load_unet(os.path.join(ckpt, "sdxl-refiner", "unet"), cfg.refiner,
+                                      dev, dtype)),
+        "prior_text": (os.path.join(ckpt, "clip-vit-h"),
+                       text(os.path.join(ckpt, "clip-vit-h"), cfg.prior_text)),
+        "imagebind_vision": (ib_path, imagebind("vision", cfg.imagebind_vision)),
+        "imagebind_audio": (ib_path, imagebind("audio", cfg.imagebind_audio)),
+        "unet": (os.path.join(sdxl, "unet"), unet),
+        "image_proj": (ip_path, image_proj),
+    }
+    factories = {name: make for name, (path, make) in groups.items() if os.path.exists(path)}
+    return StagedParams(factories, budget_bytes=budget_bytes, aliases={"inpaint_unet": "unet"},
+                        pin=pin)
 
 
 def load_pretrained_model(model_path: str, model_base: Optional[str] = None,

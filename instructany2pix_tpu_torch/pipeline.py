@@ -49,7 +49,7 @@ import os
 import re
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -247,6 +247,14 @@ class InstructAny2PixPipeline:
     constructor, which picks `PipelineConfig.tiny()` when there is neither a
     checkpoint nor `params`, the port builds `config` or, when it is None,
     the full `PipelineConfig()`.
+
+    `models` takes the modules ready-made in place of all of that: a dict,
+    or a `core.staging.StagedParams` store (`loaders.staged_models_from_root`)
+    whose groups are built on first access and evicted under a byte budget.
+    The pipeline looks every module up in `self.models` where it uses it, so
+    a store may evict and restage between stages. With a checkpoint root
+    the base UNet serves inpainting, as in the eager boot, and the
+    tokenizers, SAM and GroundingDINO come from `ckpt` either way.
     """
 
     def __init__(
@@ -259,13 +267,15 @@ class InstructAny2PixPipeline:
         ckpt: str = "ckpts",
         llm_folder: str = "llm-retrained",
         llm_quant_bits: Optional[int] = None,
+        models: Optional[Mapping[str, torch.nn.Module]] = None,
     ):
         self.device = resolve_device(device)
         self.cfg = config or PipelineConfig()
         if self.cfg.llm is None:
             self.cfg = dataclasses.replace(self.cfg, llm=mm_lib.Any2PixLMConfig())
-        from_disk = params is None and os.path.isdir(os.path.join(ckpt, llm_folder))
-        if from_disk:
+        on_disk = params is None and os.path.isdir(os.path.join(ckpt, llm_folder))
+        from_disk = on_disk and models is None
+        if on_disk:
             # the base UNet serves inpainting, as the reference builds its
             # inpaint pipeline from the base components
             self.cfg = dataclasses.replace(self.cfg, inpaint_unet=self.cfg.unet)
@@ -295,8 +305,10 @@ class InstructAny2PixPipeline:
         dtype = policy.param_dtype
         # seconds of the checkpoint boot: "read", "cast" and "quantize"
         self.boot_times: Optional[Dict[str, float]] = {} if from_disk else None
-        self.models: Dict[str, torch.nn.Module] = {}
-        if from_disk:
+        self.models: Mapping[str, torch.nn.Module] = {}
+        if models is not None:
+            self.models = models
+        elif from_disk:
             self.models = loaders.load_pipeline_models(self.cfg, ckpt, llm_folder, self.device,
                                                        dtype, llm_quant_bits, self.boot_times)
         else:
@@ -310,7 +322,9 @@ class InstructAny2PixPipeline:
                 else _random_llm(self.cfg.llm, self.device, dtype, gen, llm_quant_bits))
         # a 9-channel inpaint UNet of its own; else the base UNet inpaints
         icfg = self.cfg.inpaint_unet
-        if icfg.in_channels == 9:
+        if models is not None:
+            pass  # the store holds the inpaint UNet, or aliases the base one
+        elif icfg.in_channels == 9:
             self.models["inpaint_unet"] = (
                 convert.unet(params["inpaint_unet"], icfg, self.device, dtype) if params is not None
                 else _random_module(lambda: unet_lib.UNet(icfg), self.device, dtype, gen))
@@ -368,9 +382,15 @@ class InstructAny2PixPipeline:
         c = self.cfg
         ids1 = self._clip_ids(self.clip_tok1, prompt, c.text1.max_positions, c.text1.eos_token_id)
         ids2 = self._clip_ids(self.clip_tok2, prompt, c.text2.max_positions, c.text2.eos_token_id)
-        return sampler_lib.encode_prompt_sdxl(
-            self.models["text1"], c.text1, self.models["text2"], c.text2, ids1, ids2
-        )
+        return self._encode_sdxl_ids(ids1, ids2)
+
+    def _encode_sdxl_ids(self, ids1: torch.Tensor, ids2: torch.Tensor):
+        """`sampler.encode_prompt_sdxl`, each tower looked up just before it
+        runs: a staged store may evict text1 while text2 loads."""
+        c = self.cfg
+        o1 = clip_lib.text_apply(self.models["text1"], ids1, c.text1)
+        o2 = clip_lib.text_apply(self.models["text2"], ids2, c.text2)
+        return sampler_lib.sdxl_prompt_embeds(o1, o2)
 
     def _encode_prior_text(self, prompt: str = ""):
         """CLIP-ViT-H last hidden state of `prompt` and its mask: only the
@@ -788,7 +808,6 @@ class InstructAny2PixPipeline:
         "inpaint"), or draws from `gen` in that order."""
         c = self.cfg
         hl = self._latent_size()
-        unet = self.models.get("inpaint_unet", self.models["unet"])
         draws = iter(subject_noise or [])
 
         def inpaint_fn(image: np.ndarray, mask: np.ndarray, subject_embed, prompt: str):
@@ -809,6 +828,8 @@ class InstructAny2PixPipeline:
                 clip_image_embeds_local=self._tensor(subject_embed).reshape(1, -1), mode="local",
             )
             with self._stage("inpaint"):
+                # looked up here: a staged store may have evicted it since
+                unet = self.models["inpaint_unet" if "inpaint_unet" in self.models else "unet"]
                 out = i2i.inpaint(
                     unet, c.inpaint_unet, self.schedule, lat, m, masked_lat, ctx_p, ctx_n,
                     pooled_p, pooled_n, tid, num_inference_steps=INPAINT_NUM_STEPS,

@@ -3,7 +3,7 @@
 
 The reference serves one request at a time through a gradio queue
 (reference serve.py:115, no batching). This module serves many users from
-one card, every model resident:
+one card, every model resident or staged (see below):
 
   * `BatchScheduler` — a microbatching request queue (max batch size, max
     wait), thread-safe, futures-based; one worker thread runs the batches.
@@ -22,9 +22,12 @@ dispatch, the stages run in order, eagerly, each on the stacked batch.
 Torch's inference mode is thread-local, so each batch enters it on the
 worker thread; the kernels build at their first launch under
 `ops/_build.py`'s lock, so a first launch on the worker cannot race
-another build. One device only: the JAX server's tensor-parallel mesh
-(ROADMAP Queue 1, item 10) and its staged parameters (item 11) are not
-ported, and a mesh of more than one device raises.
+another build. A pipeline over a `core.staging.StagedParams` store (a card
+that cannot hold every model) serves too: the denoiser resolves the UNet
+from the store per batch (`params_provider`), and every stage looks its
+module up where it uses it. One device only: the JAX server's
+tensor-parallel mesh (ROADMAP Queue 1, item 10) is not ported, and a mesh
+of more than one device raises.
 """
 
 from __future__ import annotations
@@ -157,26 +160,31 @@ class BatchScheduler:
 
 
 class BatchedDenoiser:
-    """The CFG denoise over a stacked batch, on the UNet's device."""
+    """The CFG denoise over a stacked batch, on the UNet's device.
 
-    def __init__(self, unet: unet_lib.UNet, unet_cfg: unet_lib.UNetConfig,
-                 schedule: Optional[Schedule] = None, mesh=None):
+    `params_provider`: a zero-argument callable that returns the UNet,
+    called once per batch instead of holding the module, so a
+    `StagedParams` store may evict it between batches (the server passes
+    `lambda: pipe.models["unet"]`, `make_server` `lambda: unet`)."""
+
+    def __init__(self, params_provider: Callable[[], unet_lib.UNet],
+                 unet_cfg: unet_lib.UNetConfig, schedule: Optional[Schedule] = None, mesh=None):
         _refuse_mesh(mesh)
-        self.unet = unet
+        self._provider = params_provider
         self.cfg = unet_cfg
-        self.device = unet.conv_in.weight.device
-        self.schedule = schedule or Schedule.create(SchedulerConfig(), self.device)
+        self.schedule = schedule or Schedule.create(
+            SchedulerConfig(), params_provider().conv_in.weight.device)
 
     def denoise(self, lat, ctx, ctx_u, pooled, pooled_u, tid, steps: int, guidance: float,
                 ip=None, ip_u=None, ip_scale: float = 1.0) -> torch.Tensor:
         return sampler_lib.denoise(
-            self.unet, self.cfg, self.schedule, lat, ctx, ctx_u, pooled, pooled_u, tid,
+            self._provider(), self.cfg, self.schedule, lat, ctx, ctx_u, pooled, pooled_u, tid,
             num_inference_steps=steps, guidance_scale=guidance, ip_tokens=ip,
             ip_tokens_uncond=ip_u, ip_scale=ip_scale,
         )
 
     def run_batch(self, reqs: List[EditRequest]) -> List[np.ndarray]:
-        dev = self.device
+        dev = self._provider().conv_in.weight.device
 
         def stack(get):
             return torch.as_tensor(np.stack([np.asarray(get(r), np.float32) for r in reqs]),
@@ -202,7 +210,7 @@ class BatchedDenoiser:
 
 def make_server(unet, unet_cfg: unet_lib.UNetConfig, max_batch: int = 8,
                 max_wait_s: float = 0.05, mesh=None) -> BatchScheduler:
-    den = BatchedDenoiser(unet, unet_cfg, mesh=mesh)
+    den = BatchedDenoiser(lambda: unet, unet_cfg, mesh=mesh)
     return BatchScheduler(den.run_batch, max_batch, max_wait_s).start()
 
 
@@ -283,7 +291,8 @@ SEED_OFFSETS = {"llm": 0, "vae_noise": 0, "polar_noise": 1, "refiner_vae_noise":
 
 
 class PipelineServer:
-    """Batched full-pipeline server over a resident `InstructAny2PixPipeline`
+    """Batched full-pipeline server over an `InstructAny2PixPipeline`, resident
+    or staged
     (BASELINE.json config 5): every stage runs once per microbatch.
 
     Batch compatibility (the scheduler's bucket): num_inference_steps, cfg,
@@ -314,7 +323,9 @@ class PipelineServer:
         self.bucket = bucket
         self.max_new_tokens = max_new_tokens
         self.last_generate = None
-        self.denoiser = BatchedDenoiser(pipe.models["unet"], pipe.cfg.unet, schedule=pipe.schedule)
+        # a staged store may evict the UNet between batches: resolve it per batch
+        self.denoiser = BatchedDenoiser(lambda: pipe.models["unet"], pipe.cfg.unet,
+                                        schedule=pipe.schedule)
         self.scheduler = BatchScheduler(
             self._run_batch, max_batch, max_wait_s,
             bucket_fn=lambda req: (req.num_inference_steps, req.cfg, req.refinement, req.scale,
@@ -474,8 +485,7 @@ class PipelineServer:
                                              c.text1.eos_token_id) for p in prompts])
             ids2 = torch.cat([pipe._clip_ids(pipe.clip_tok2, p, c.text2.max_positions,
                                              c.text2.eos_token_id) for p in prompts])
-            ctx_p, pooled_p = sampler_lib.encode_prompt_sdxl(
-                pipe.models["text1"], c.text1, pipe.models["text2"], c.text2, ids1, ids2)
+            ctx_p, pooled_p = pipe._encode_sdxl_ids(ids1, ids2)
             ctx_null, pooled_null = pipe._encode_sdxl_prompt("")
             ctx_nb, pooled_nb = ctx_null.expand(b, -1, -1), pooled_null.expand(b, -1)
         tid = sampler_lib.default_time_ids(c.image_size, c.image_size, b, dev)

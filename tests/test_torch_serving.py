@@ -132,7 +132,8 @@ def test_batched_denoiser_matches_jax_denoise():
     jcfg = j_unet.UNetConfig.tiny(with_ip=True)
     tree = convert.to_numpy(j_unet.init(jax.random.key(seed), jcfg))
     pcfg = t_unet.UNetConfig(**dataclasses.asdict(jcfg))
-    den = serving.BatchedDenoiser(convert.unet(tree, pcfg), pcfg, schedule=Schedule.create())
+    unet = convert.unet(tree, pcfg)
+    den = serving.BatchedDenoiser(lambda: unet, pcfg, schedule=Schedule.create())
     c = jcfg.cross_attention_dim
     reqs = [serving.EditRequest(
         latents=randn(seed + i, 16, 16, 4), ctx=randn(seed + 10 + i, 5, c),
