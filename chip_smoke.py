@@ -170,6 +170,28 @@ the card against the CPU, indices identical, within TINY_REL; the tiny edit
 through a store that evicts between stages, bit-identical to the edit
 without one).
 
+Slice 14 (`phase_parallel`, at the end of phase 4 with the tree on disk and
+every pipeline freed; each rank a process of this script, `--rank`, joined
+within PARALLEL_TIMEOUT_S and killed after it, so a rank that fails or
+hangs fails the phase): two gloo ranks on the one card, mesh (1, 2), each
+booting the full-width pipeline from the tree with `mesh=` (the LLM
+unfused, o and down at int8); rank 0 first runs the LLM stage on its whole
+model (the reference); `PipelineServer(mesh=)` shards the LLM and the
+UNet over "model"; rank 0 serves the LLM stage for real on 2 prompts
+(injected Gumbel draws: tokens identical to the reference or diverging
+only at a bf16 rounding tie; K2 exactly 5 mma and 2 fma launches per layer
+per decode step) and 2 edits through the diffusion stages at phase 4's
+step counts (exact K1 count, all wgmma, the base UNet's attention on its
+local heads; finite images; their largest uint8 difference from the
+resident server printed), the other rank following; each rank's peak
+memory and the collectives by op; one full-width decoder layer and one
+SDXL transformer block by the two ranks' shards against the unsharded
+copies within K2's and K1's limits carried through; one CFG UNet step's
+collectives; ring attention at (1, 8192, 8, 64) against plain attention.
+Then one NCCL rank: FSDP2 at world size 1 on the full-width trainer, the
+first step's loss equal to the unsharded step's, its grad norm within
+2^-8, the same K1 and K4 launches.
+
 Every main-path run reads the K1, K2, K3, K4, K4a and K4b counters, set to
 0 just before it (K1's, K2's and K4's also by the path each launch took);
 K2 must stay at 0 outside `forward_llm`, K3 outside subject consistency,
@@ -267,6 +289,7 @@ K1_SHAPES = [
     ("unet text cross", (2, 10, 4096, 64), 77, False),
     ("unet ip cross", (2, 10, 4096, 64), 4, False),
     ("unet self 64x64, served batch 4", (8, 10, 4096, 64), 4096, False),
+    ("unet self 64x64, TP shard (5 of 10 heads)", (2, 5, 4096, 64), 4096, False),
     ("refiner self 64x64", (2, 12, 4096, 64), 4096, False),
     ("refiner self 32x32", (2, 24, 1024, 64), 1024, False),
     ("ragged d=64", (2, 10, 1000, 64), 999, False),
@@ -350,6 +373,12 @@ QMV_SHAPES = [
     # chunks whose x' does not fit the shared memory, staged in windows
     ("70B down K + swiglu + norm", 28672, 4096, "int4g", "swiglu+norm", (16,), "bfloat16"),
     ("fp32 K=16384 + swiglu + norm", 16384, 4096, "int4g", "swiglu+norm", (16,), "float32"),
+    # the tensor-parallel decode's shards at n_model = 2 (unfused; o and down
+    # int8, row-split, their residual added after the all-reduce)
+    ("7B TP q/k/v shard + norm", 4096, 2048, "int4g", "norm", (1, 2), "bfloat16"),
+    ("7B TP gate/up shard + norm", 4096, 5504, "int4g", "norm", (1, 2), "bfloat16"),
+    ("7B TP o shard, int8", 2048, 4096, "int8", "none", (1, 2), "bfloat16"),
+    ("7B TP down shard, int8 + swiglu", 5504, 4096, "int8", "swiglu", (1, 2), "bfloat16"),
 ]
 # Deliberately broken copies of K2 (csrc/qmv.cu) that the check must refuse.
 QMV_FAULTS = {
@@ -1957,6 +1986,8 @@ def _full_width_from(root, cfg, failures, feats_dir):
             out["vae_decode_ms"] = time_ms(lambda: vae_lib.decode(pipe.models["vae"], lat, cfg.vae), 3, 1)
             out["prompt_encode_ms"] = time_ms(lambda: pipe._encode_sdxl_prompt("a cat"), 5, 1)
             out["unet_step_profile"] = profile_window(step, "CFG UNet step")
+            # the step's closure holds the UNet: drop it with the pipeline below
+            del step, eps_fn, lat, ctx_p, pooled_p, ctx_n, pooled_n, tid
         prof = out["unet_step_profile"]
         if prof is not None:
             log(f"UNet step device busy without the profiler: {prof['kernel_ms']:.2f} ms of kernels "
@@ -1986,6 +2017,11 @@ def _full_width_from(root, cfg, failures, feats_dir):
     t0 = time.time()
     out["staged"] = phase_staged(root, cfg, failures)
     out["staged_seconds"] = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["parallel"] = phase_parallel(root, cfg, failures)
+    out["parallel_seconds"] = time.time() - t0
     return out
 
 
@@ -5521,6 +5557,728 @@ def phase_tiny_slice13(failures):
     return out
 
 
+# ------------------------------------------------------------------ the mesh (slice 14)
+
+PARALLEL_TIMEOUT_S = 600  # a rank group's whole run, boot included; then it is killed
+TP_LLM_ROWS = 2  # the tensor-parallel LLM stage's prompts: phase_serve's first two
+TP_EDIT_SEEDS = (1, 2)  # the tensor-parallel diffusion microbatch: phase_serve's first two edits
+TP_TEMPERATURE = 0.3  # the server's sampling temperature
+RING_SHAPE = (1, 8192, 8, 64)  # (B, S, H, D) of the ring attention check, S over two ranks
+RING_TOL = 2e-5  # float32, the sum order of the online softmax (tests/test_ring_attention.py)
+TP_GUMBEL_SEED = 77
+# decode steps of the TP LLM stage: every step of the two ranks sharing one
+# card waits on a gloo round trip between their time-sliced contexts
+TP_NEW_TOKENS = 48
+
+
+def _tp_llm_requests(png, wav, vocab, max_new_tokens):
+    """phase_serve's first TP_LLM_ROWS LLM requests with injected Gumbel
+    draws, so the resident and the tensor-parallel runs sample from the same
+    noise and each step's sampling scores are known."""
+    import numpy as np
+
+    from instructany2pix_tpu_torch import serving
+
+    media = ([{"type": "image", "fname": png}], [{"type": "audio", "fname": wav}])
+    g = np.random.RandomState(TP_GUMBEL_SEED).gumbel(
+        size=(TP_LLM_ROWS, max_new_tokens, vocab)).astype(np.float32)
+    return [serving.PipelineRequest(SERVE_INSTS[i], media[i], seed=40 + i, llm_gumbel=g[i])
+            for i in range(TP_LLM_ROWS)], g
+
+
+def _record_logits(run):
+    """`run()` with every cached `llama.forward`'s last-position logits
+    recorded (CPU float32, one (B, V) per call: the prefill's predicts token
+    0, each decode step's the next)."""
+    from instructany2pix_tpu_torch.models import llama as llama_lib
+
+    got = []
+    orig = llama_lib.forward
+
+    def rec(*a, **kw):
+        o = orig(*a, **kw)
+        if kw.get("cache") is not None:
+            got.append(o["logits"][:, -1].float().cpu())
+        return o
+
+    llama_lib.forward = rec
+    try:
+        result = run()
+    finally:
+        llama_lib.forward = orig
+    return result, got
+
+
+def _first_divergence(tokens, ref_tokens, done_at, ref_done):
+    """[(row, index)] of each row's first differing token within its answer."""
+    out = []
+    for r in range(ref_tokens.shape[0]):
+        n = min(int(max(done_at[r], ref_done[r])) + 1, ref_tokens.shape[1])
+        diff = [i for i in range(n) if tokens[r, i] != ref_tokens[r, i]]
+        if diff:
+            out.append((r, diff[0]))
+    return out
+
+
+def _tie_reading(ref, got_logits, got_tokens, got_done):
+    """Tokens against the resident reference: identical, or each row's
+    first divergence at a bf16 rounding tie. A flip of the sampled token is
+    possible only where the resident's top-2 margin of the sampling scores
+    (logits / T + the injected Gumbel draw) is below twice the runs'
+    largest score difference at that step."""
+    import torch
+
+    div = _first_divergence(got_tokens, ref["tokens"], got_done, ref["done_at"])
+    readings = []
+    for r, i in div:
+        if i >= len(ref["logits"]) or i >= len(got_logits):
+            readings.append({"row": r, "index": i, "tie": False, "note": "no logits at the step"})
+            continue
+        g = torch.from_numpy(ref["gumbel"][r, i])
+        s_ref = ref["logits"][i][r] / TP_TEMPERATURE + g
+        s_got = got_logits[i][r] / TP_TEMPERATURE + g
+        top2 = s_ref.topk(2).values
+        margin = float(top2[0] - top2[1])
+        diff = float((s_ref - s_got).abs().max())
+        readings.append({"row": r, "index": i, "resident_top2_margin": margin,
+                         "max_score_difference": diff, "tie": margin < 2 * diff})
+    return {"identical": not div, "divergences": readings,
+            "ok": all(x["tie"] for x in readings)}
+
+
+def _tp_server_class():
+    """A `PipelineServer` whose LLM stage gives phase_serve's seeded outcomes
+    (`_served_edits`) to requests whose instruction starts with "stub:" (a
+    random 7B asks for no image), and runs for real otherwise."""
+    from instructany2pix_tpu_torch import serving
+
+    class TPServer(serving.PipelineServer):
+        def _llm_stage(self, reqs):
+            if reqs[0].inst.startswith("stub:"):
+                _, _, stub = _served_edits(None, self.pipe.cfg.llm.image_codec_dim)
+                return stub(reqs)
+            return super()._llm_stage(reqs)
+
+    return TPServer
+
+
+def _moved_qmatmul(Q, seed=17):
+    """A `qmatmul` whose output moves each element by K2's whole limit
+    (QMV_TOL, as `qmv_reading` computes it), the signs from a seeded
+    generator: running a layer through it carries K2's limit through."""
+    import torch
+
+    orig = Q.qmatmul
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def moved(x, q, norm_g=None, norm_eps=1e-6, swiglu=False, residual=None):
+        y = orig(x, q, norm_g, norm_eps, swiglu, residual)
+        x2 = x.reshape(-1, x.shape[-1])
+        h = Q._prologue(x2, norm_g, norm_eps, swiglu).float()
+        wd = _dequant(q)
+        sigma = torch.sqrt((h * h) @ (wd * wd))
+        a = h.abs() @ wd.abs()
+        y2 = y.reshape(sigma.shape).float()
+        lim = QMV_TOL["ulp"] * y2.abs() + QMV_TOL["stol"] * sigma + QMV_TOL["atol"] * a
+        sign = torch.randint(0, 2, lim.shape, generator=gen, device=lim.device) * 2 - 1
+        return (y2 + sign * lim).to(y.dtype).reshape(y.shape)
+
+    return orig, moved
+
+
+def _carried_reading(y_tp, y_1, y_moved):
+    """The sharded output against the unsharded one, each element within
+    the carried limit (the largest move that shifting every kernel output
+    by its whole limit gives the unsharded output) plus one bf16 rounding
+    of that element (2^-8 |y|: both runs round their last sum apart)."""
+    import torch
+
+    a, b = y_tp.float(), y_1.float()
+    spread = (y_moved.float() - b).abs().max().item()
+    limit = spread + 2.0**-8 * b.abs()
+    d = (a - b).abs()
+    return {"max_abs_diff": d.max().item(), "carried_limit": spread,
+            "of_limit": (d / limit).max().item(), "finite": bool(torch.isfinite(a).all()),
+            "ok": bool((d <= limit).all())}
+
+
+def _tp_layer_checks(pipe, layer_ref, block_ref, mesh):
+    """One full-width decoder layer and one SDXL transformer block computed
+    by this rank's shards (both ranks in lock-step) against the unsharded
+    copies on the same card: each difference as a share of the spread that
+    moving every K2 (the layer) or K1 (the block) output by its whole limit
+    gives the unsharded copy (`_with_limit_moves`)."""
+    import collections
+
+    import torch
+
+    from instructany2pix_tpu_torch.models import llama as llama_lib
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.parallel import sharding as sh
+
+    out = {}
+    lcfg = pipe.cfg.llm.llama
+    g = torch.Generator("cuda").manual_seed(5)
+    x = (torch.randn((2, 1, lcfg.hidden_size), generator=g, device="cuda")).bfloat16()
+    rope = llama_lib._rope_tables(torch.zeros((2, 1), device="cuda"), lcfg.head_dim // 2,
+                                  lcfg.rope_theta)
+    layer_tp = pipe.models["llm"].llama.layer_0
+    with torch.inference_mode():
+        Q.reset_qmv_counts()
+        with sh.tp_activation_constraints(mesh):
+            y_tp = llama_lib._block(layer_tp, x, lcfg, None, rope)
+        out["layer_k2_by_path"] = dict(Q.qmv_cuda.launches_by_path)
+        y_1 = llama_lib._block(layer_ref, x, lcfg, None, rope)
+        orig, moved = _moved_qmatmul(Q)
+        Q.qmatmul = moved
+        try:
+            y_mv = llama_lib._block(layer_ref, x, lcfg, None, rope)
+        finally:
+            Q.qmatmul = orig
+    out["layer"] = _carried_reading(y_tp, y_1, y_mv)
+
+    ucfg = pipe.cfg.unet
+    block_tp = pipe.models["unet"].down_1["attn_0"].block_0
+    dim, heads = ucfg.block_out_channels[1], ucfg.num_attention_heads[1]
+    xb = torch.randn((2, 4096, dim), generator=g, device="cuda").bfloat16()
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=g, device="cuda").bfloat16()
+    seen = collections.Counter()
+    attn = unet_lib.dot_product_attention
+
+    def recording(q, k, v, **kw):
+        seen[(tuple(q.shape), k.shape[1])] += 1
+        return attn(q, k, v, **kw)
+
+    with torch.inference_mode():
+        reset_k1(fa)
+        unet_lib.dot_product_attention = recording
+        try:
+            with sh.tp_activation_constraints(mesh):
+                b_tp = unet_lib._tblock(block_tp, xb, ctx, heads, None, 1.0)
+        finally:
+            unet_lib.dot_product_attention = attn
+        out["block_k1_launches"] = fa.flash_fwd_cuda.launches
+        out["block_k1_by_path"] = dict(fa.flash_fwd_cuda.launches_by_path)
+        out["block_attention_shapes"] = [[list(s), sk, n] for (s, sk), n in seen.items()]
+        b_1 = unet_lib._tblock(block_ref, xb, ctx, heads, None, 1.0)
+        b_mv = _with_limit_moves(unet_lib, lambda: unet_lib._tblock(block_ref, xb, ctx, heads,
+                                                                      None, 1.0))
+    out["block"] = _carried_reading(b_tp, b_1, b_mv)
+    return out
+
+
+def _rank_serve(job, mesh):
+    """Rank body of phase_parallel's (a) and (c): the full-width pipeline
+    booted from the tree, sharded by `PipelineServer` over the (1, 2) mesh;
+    the LLM stage on TP_LLM_ROWS prompts and a microbatch of edits served
+    through rank 0's scheduler; the layer checks; one CFG UNet step's
+    collectives; ring attention over the two ranks."""
+    import collections
+    import copy
+    import gc
+
+    import torch
+
+    from instructany2pix_tpu_torch.diffusion import sampler as sampler_lib
+    from instructany2pix_tpu_torch.models import unet as unet_lib
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.parallel import collectives as C
+    from instructany2pix_tpu_torch.parallel import ring_attention as ring_lib
+    from instructany2pix_tpu_torch.parallel import sharding as sh
+    from instructany2pix_tpu_torch import serving
+    from instructany2pix_tpu_torch.pipeline import InstructAny2PixPipeline
+
+    out = {"rank": mesh.rank, "mesh": [mesh.n_data, mesh.n_model], "backend": mesh.backend}
+
+    def reset():
+        reset_k1(fa)
+        reset_k3(fa)
+        Q.reset_qmv_counts()
+        reset_k4(fa)
+        C.reset_counts()
+
+    def counts():
+        return {"k1": fa.flash_fwd_cuda.launches, "k1_by_path": dict(fa.flash_fwd_cuda.launches_by_path),
+                "k2": Q.qmv_cuda.launches, "k2_by_path": dict(Q.qmv_cuda.launches_by_path),
+                "k3": fa.flash_relpos2d_cuda.launches, "k4": fa.flash_bwd_cuda.launches,
+                "k4a": fa.flash_bwd_dq_cuda.launches, "k4b": fa.flash_bwd_dkv_cuda.launches,
+                "collectives": C.counts()}
+
+    cfg = _full_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe = InstructAny2PixPipeline(cfg, ckpt=job["root"], llm_quant_bits=4, mesh=mesh)
+    torch.cuda.synchronize()
+    out["boot_seconds"] = time.time() - t0
+    out["boot_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    layer_ref = copy.deepcopy(pipe.models["llm"].llama.layer_0)
+    block_ref = copy.deepcopy(pipe.models["unet"].down_1["attn_0"].block_0)
+    vocab = cfg.llm.llama.vocab_size
+    if mesh.rank == 0:
+        # the reference: the same LLM stage on this rank's whole, unsharded
+        # model (the TP layout's weights: o and down at int8, unfused)
+        ref_server = serving.PipelineServer(pipe, max_batch=TP_LLM_ROWS, max_new_tokens=TP_NEW_TOKENS)
+        try:
+            reqs, g = _tp_llm_requests(job["png"], job["wav"], vocab, ref_server.max_new_tokens)
+            reset()
+            _, logits = _record_logits(lambda: ref_server._llm_stage(reqs))
+            gen = ref_server.last_generate
+            out["ref"] = {"tokens": gen.tokens.cpu().numpy(), "done_at": gen.done_at.cpu().numpy(),
+                          "logits": logits, "gumbel": g, "counts": counts()}
+        finally:
+            ref_server.stop()
+        del ref_server
+    server = _tp_server_class()(pipe, mesh=mesh, max_batch=TP_LLM_ROWS, max_wait_s=1.0,
+                                max_new_tokens=TP_NEW_TOKENS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["weights_gib"] = sum(_weight_bytes(m) for m in pipe.models.values()) / 2**30
+    out["resident_gib"] = torch.cuda.memory_allocated() / 2**30
+    out["formats"] = {n: str(getattr(pipe.models["llm"].llama.layer_0, n))
+                      for n in ("q", "o", "gate", "down")}
+    out["kinds"] = collections.Counter(getattr(m, "tp", None) for m in pipe.models["unet"].modules()
+                                       if getattr(m, "tp", None))
+    out["tblocks"] = {n: sum(isinstance(m, unet_lib.TBlock) for m in pipe.models[n].modules())
+                      for n in ("unet", "refiner")}
+    out["llm_kinds"] = collections.Counter(getattr(m, "tp", None)
+                                           for m in pipe.models["llm"].llama.modules()
+                                           if getattr(m, "tp", None))
+
+    heads = collections.Counter()
+    attn = unet_lib.dot_product_attention
+
+    def recording(q, k, v, **kw):
+        heads[(q.shape[2], q.shape[1])] += 1
+        return attn(q, k, v, **kw)
+
+    if mesh.rank != 0:
+        unet_lib.dot_product_attention = recording
+        try:
+            reset()
+            server.wait(timeout=PARALLEL_TIMEOUT_S)
+            out["serve_counts"] = counts()
+        finally:
+            unet_lib.dot_product_attention = attn
+    else:
+        image = {"type": "image", "fname": job["png"]}
+        edits, _, _ = _served_edits(image, cfg.llm.image_codec_dim)
+        edits = [e for e in edits if e.seed in TP_EDIT_SEEDS]
+        for e in edits:
+            e.inst = "stub: " + e.inst
+        try:
+            # ---- the LLM stage for real on TP_LLM_ROWS prompts
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            pipe.stage_times = {}
+            t0 = time.time()
+            results, logits = _record_logits(
+                lambda: [f.result(timeout=PARALLEL_TIMEOUT_S) for f in [server.submit(r) for r in reqs]])
+            torch.cuda.synchronize()
+            out["llm_seconds"] = time.time() - t0
+            out["llm_stage_seconds"] = dict(pipe.stage_times)
+            out["llm_counts"] = counts()
+            gen = server.last_generate
+            out["llm_tokens"] = gen.tokens.cpu().numpy()
+            out["llm_done_at"] = gen.done_at.cpu().numpy()
+            out["llm_logits"] = logits
+            out["llm_captions"] = [r.caption[:60] for r in results]
+            out["llm_decode_steps"] = min(int(gen.done_at.max()), gen.tokens.shape[1] - 1)
+            # ---- the diffusion stages: a microbatch of edits, the LLM stage stubbed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            pipe.stage_times = {}
+            unet_lib.dot_product_attention = recording
+            t0 = time.time()
+            try:
+                served = [f.result(timeout=PARALLEL_TIMEOUT_S) for f in [server.submit(r) for r in edits]]
+                torch.cuda.synchronize()
+            finally:
+                unet_lib.dot_product_attention = attn
+            out["serve_seconds"] = time.time() - t0
+            out["serve_stage_seconds"] = dict(pipe.stage_times)
+            out["serve_counts"] = counts()
+            out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out["images"] = [r.image for r in served]
+            out["serve_captions"] = [r.caption for r in served]
+        finally:
+            pipe.stage_times = None
+            server.stop()
+    out["unet_attention_heads"] = [[h, s, n] for (h, s), n in sorted(heads.items())]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- after the server released every rank: the layer checks in lock-step
+    out.update(_tp_layer_checks(pipe, layer_ref, block_ref, mesh))
+    del layer_ref, block_ref
+
+    # ---- one CFG UNet step of the microbatch's shape: collectives and time
+    with torch.inference_mode(), sh.tp_activation_constraints(mesh):
+        b = 2 * len(TP_EDIT_SEEDS)
+        ctx_p, pooled_p = pipe._encode_sdxl_prompt("a photo of a cat in an antique shop")
+        ctx_n, pooled_n = pipe._encode_sdxl_prompt("")
+        tid = sampler_lib.default_time_ids(1024, 1024, b // 2, pipe.device)
+        eps_fn = sampler_lib.make_cfg_eps_fn(
+            pipe.models["unet"], cfg.unet, ctx_p.expand(b // 2, -1, -1), ctx_n.expand(b // 2, -1, -1),
+            pooled_p.expand(b // 2, -1), pooled_n.expand(b // 2, -1), tid, 5.0)
+        lat = torch.randn((b // 2, 128, 128, 4), generator=torch.Generator("cuda").manual_seed(3),
+                          device="cuda")
+        torch.cuda.synchronize()  # the served microbatch warmed this step's shapes
+        C.reset_counts()
+        t0 = time.time()
+        eps_fn(lat, 500, 0)
+        torch.cuda.synchronize()
+        out["cfg_step_seconds"] = time.time() - t0
+        out["cfg_step_collectives"] = C.counts()
+
+    # ---- (c) ring attention over the two ranks against plain attention
+    del server, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    bq, s, h, d = RING_SHAPE
+    g = torch.Generator("cuda").manual_seed(23)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda") for _ in range(3))
+    n, idx = mesh.n_model, mesh.axis_index("model")
+    blk = slice(idx * s // n, (idx + 1) * s // n)
+    ring = {}
+    for causal in (False, True):
+        C.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        o = ring_lib.ring_attention(q[:, blk], k[:, blk], v[:, blk], mesh, axis="model",
+                                    causal=causal)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        counts_ring = C.counts()
+        full = C.all_gather(o, 1, mesh.group("model"))
+        if mesh.rank != 0:  # rank 0 holds the plain reference
+            continue
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t0 = time.time()
+        ref = torch.softmax((qt @ kt.transpose(-1, -2)) * d**-0.5
+                            + (torch.full((s, s), float("-inf"), device="cuda").triu(1)
+                               if causal else 0.0), dim=-1) @ vt
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        ref = ref.transpose(1, 2)
+        err = (full - ref).abs().max().item()
+        ring[f"causal={causal}"] = {"max_abs_err": err, "ok": err <= RING_TOL, "ms": ms,
+                                    "plain_ms": plain_ms, "collectives": counts_ring}
+        del full, ref, o
+    out["ring"] = ring
+    return out
+
+
+def _rank_train(job, mesh):
+    """Rank body of phase_parallel's (b): FSDP2 at world size 1 over NCCL on
+    the full-width trainer (phase_train's config and first batch): the first
+    step's loss and grad norm against the unsharded step on the same
+    weights and batch, and each step's K1 and K4 launches."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+    from instructany2pix_tpu_torch.ops import quant as Q
+    from instructany2pix_tpu_torch.train.train_step import TrainConfig, make_train_step
+
+    out = {"rank": mesh.rank, "backend": mesh.backend, "world": mesh.size()}
+    with tempfile.TemporaryDirectory() as d:
+        cfg, _, first, params = _train_setup(d)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+        twin = copy.deepcopy(params)
+        tcfg = TrainConfig(total_steps=TRAIN_STEPS)
+        for name, mesh_arg, model in (("plain", None, params), ("fsdp", mesh, twin)):
+            init_state, step = make_train_step(cfg, tcfg, mesh=mesh_arg)
+            state = init_state(model)
+            reset_k1(fa)
+            reset_k3(fa)
+            Q.reset_qmv_counts()
+            reset_k4(fa)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            out[name] = {"seconds": time.time() - t0,
+                         "metrics": {k: float(v) for k, v in m.items()},
+                         "launches": dict(zip(COUNT_KEYS, _counts(fa, Q))),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            t0 = time.time()  # a second step, warm, for the time
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            out[name]["second_step_seconds"] = time.time() - t0
+            if name == "fsdp":
+                out["fsdp"]["sharded_params"] = sum(1 for p in model.parameters()
+                                                    if hasattr(p, "placements"))
+                out["fsdp"]["replicated_params"] = len(model.fsdp_replicated)
+            del state
+            torch.cuda.empty_cache()
+    return out
+
+
+def _rank_main(kind, rank, world, d):
+    """A rank of phase_parallel, started as `chip_smoke.py --rank KIND R W
+    DIR`: joins the group through file://DIR/rdv, runs its body, pickles the
+    result to DIR/rank<R>.pkl."""
+    import pickle
+
+    import torch
+
+    from instructany2pix_tpu_torch.core import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(f"{d}/job.json") as f:
+        job = json.load(f)
+    backend = "gloo" if kind == "serve" else "nccl"
+    mesh_lib.init_distributed(backend, f"file://{d}/rdv", rank, world,
+                              timeout_s=PARALLEL_TIMEOUT_S)
+    import torch.distributed as dist
+
+    mesh = mesh_lib.make_mesh(1, world)
+    out = (_rank_serve if kind == "serve" else _rank_train)(job, mesh)
+    with open(f"{d}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(kind, world, d, job):
+    """`world` ranks of `kind` (one process each, this script with --rank),
+    joined within PARALLEL_TIMEOUT_S and killed after it: a rank that fails
+    or hangs fails the phase. Returns (results by rank or None, seconds,
+    the failure or None)."""
+    import os
+    import pickle
+
+    with open(os.path.join(d, "job.json"), "w") as f:
+        json.dump(job, f)
+    here = os.path.abspath(__file__)
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, here, "--rank", kind, str(r), str(world), d],
+                              stdout=open(os.path.join(d, f"rank{r}.log"), "w"),
+                              stderr=subprocess.STDOUT, cwd=os.path.dirname(here))
+             for r in range(world)]
+    failed = None
+    deadline = t0 + PARALLEL_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(deadline - time.time(), 1))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {r} of {kind} ran past {PARALLEL_TIMEOUT_S} s"
+                break
+            if rc != 0:
+                failed = f"rank {r} of {kind} exited with {rc}"
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.time() - t0
+    if failed:
+        tails = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                lines = f.read().splitlines()
+            log(f"--- {kind} rank {r} log (last lines)\n" + "\n".join(lines[-40:]))
+            tails.append(f"rank {r}: " + " | ".join(lines[-8:]))
+        return None, seconds, failed + "; " + " || ".join(tails)
+    res = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res, seconds, None
+
+
+def phase_parallel(root, cfg, failures):
+    """Slice 14, after phase 4's pipelines are freed, with the tree on disk:
+    (a) two ranks on the one card over gloo, mesh (1, 2): each boots the
+    full-width pipeline from the tree and `PipelineServer` shards the LLM
+    (unfused, o and down int8) and the UNet over "model"; rank 0 serves the
+    LLM stage for real on phase_serve's first TP_LLM_ROWS prompts (injected
+    Gumbel draws; tokens identical to the resident server's, or diverging
+    only at a bf16 rounding tie) and a microbatch of TP_EDIT_SEEDS edits at
+    1024^2 on phase 4's step counts (finite images; their largest uint8
+    difference from the resident server's printed); K2 by path (mma for
+    q/k/v/gate/up, fma for the int8 o/down: exact counts per decode step),
+    K1 on the UNet's local heads, collectives by op; each rank's peak
+    memory; then one decoder layer and one SDXL transformer block by the
+    two ranks' shards against the unsharded copy, within K2's and K1's
+    limits carried through; one CFG step's collectives.
+    (c) in the same ranks: ring attention at RING_SHAPE against plain
+    attention on the card. (b) one rank over NCCL: FSDP2 at world size 1 on
+    the full-width trainer, the first step's loss equal to the unsharded
+    step's, its grad norm within a bf16 ulp, the same K1 and K4 launches."""
+    import tempfile
+
+    import numpy as np
+
+    card = card_line()
+    out = {"card": card}
+    if "served" not in RESIDENT_EDIT:
+        failures.append("parallel: the resident server left no images to compare with")
+        return out
+    import torch
+
+    L = cfg.llm.llama.num_layers
+    free, total = torch.cuda.mem_get_info()
+    out["parent_device_gib"] = {"allocated": torch.cuda.memory_allocated() / 2**30,
+                                "reserved": torch.cuda.memory_reserved() / 2**30,
+                                "free": free / 2**30, "total": total / 2**30}
+    log(f"parallel: this process holds {out['parent_device_gib']['allocated']:.2f} GiB "
+        f"({out['parent_device_gib']['reserved']:.2f} reserved); the card has "
+        f"{out['parent_device_gib']['free']:.2f} of {out['parent_device_gib']['total']:.2f} GiB free")
+    with tempfile.TemporaryDirectory(prefix="ia2p-mesh-") as d:
+        png, wav = _write_media(d)
+        res, secs, failed = _spawn_ranks("serve", 2, d, {"root": root, "png": png, "wav": wav})
+    out["serve_ranks_seconds"] = secs
+    if failed:
+        failures.append(f"parallel serve: {failed}")
+        return out
+    lead, follow = res
+    steps = lead["llm_decode_steps"]
+    tie = _tie_reading(lead["ref"], lead["llm_logits"], lead["llm_tokens"], lead["llm_done_at"])
+    ref_k2 = lead["ref"]["counts"]["k2_by_path"]
+    k2 = lead["llm_counts"]["k2_by_path"]
+    k2_expected = {"mma": 5 * L * steps, "fma": 2 * L * steps}
+    k1_llm_expected = cfg.imagebind_vision.layers + cfg.imagebind_audio.layers
+    tb = lead["tblocks"]
+    # per edit microbatch: inversion 1 + denoise 2 (CFG) calls with self, text
+    # and IP attention, as phase_serve counts it; the refiner's CFG steps
+    k1_serve_expected = EDIT_STEPS * 5 * tb["unet"] + int(50 * 0.5) * 2 * tb["refiner"]
+    sc = lead["serve_counts"]
+    heads = {h for h, _, _ in lead["unet_attention_heads"]}
+    imgs = lead["images"]
+    size = cfg.image_size
+    images_ok = all(im is not None and im.shape == (size, size, 3) and im.dtype == np.uint8
+                    and im.std() > 0 for im in imgs)
+    resident = [RESIDENT_EDIT["served"][s - 1] for s in TP_EDIT_SEEDS]
+    levels = [int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) for a, b in zip(imgs, resident)]
+    out.update({
+        "boot_seconds": [lead["boot_seconds"], follow["boot_seconds"]],
+        "boot_peak_gib": [lead["boot_peak_gib"], follow["boot_peak_gib"]],
+        "weights_gib": [lead["weights_gib"], follow["weights_gib"]],
+        "resident_gib": [lead["resident_gib"], follow["resident_gib"]],
+        "peak_gib": [lead["peak_gib"], follow["peak_gib"]],
+        "formats": lead["formats"], "unet_kinds": dict(lead["kinds"]),
+        "llm_kinds": dict(lead["llm_kinds"]),
+        "llm_seconds": lead["llm_seconds"], "llm_stage_seconds": lead["llm_stage_seconds"],
+        "llm_decode_steps": steps, "llm_captions": lead["llm_captions"], "tokens": tie,
+        "llm_k2_by_path": k2, "llm_k2_expected": k2_expected, "unsharded_k2_by_path": ref_k2,
+        "llm_k1_launches": lead["llm_counts"]["k1"], "llm_k1_expected": k1_llm_expected,
+        "llm_collectives": lead["llm_counts"]["collectives"],
+        # the stage's generate over its decode steps (the prefill's share included)
+        "llm_ms_per_step": lead["llm_stage_seconds"].get("serve_llm", 0.0) * 1e3 / max(steps, 1),
+        "serve_seconds": lead["serve_seconds"], "serve_stage_seconds": lead["serve_stage_seconds"],
+        "serve_k1_launches": sc["k1"], "serve_k1_by_path": sc["k1_by_path"],
+        "serve_k1_expected": k1_serve_expected,
+        "serve_k2_launches": sc["k2"], "serve_collectives": sc["collectives"],
+        "follower_collectives": follow["serve_counts"]["collectives"],
+        "unet_attention_heads": lead["unet_attention_heads"], "serve_peak_gib": lead["serve_peak_gib"],
+        "images_ok": images_ok, "levels_from_resident": levels,
+        "layer": [lead["layer"], follow["layer"]], "block": [lead["block"], follow["block"]],
+        "layer_k2_by_path": lead["layer_k2_by_path"],
+        "block_attention_shapes": lead["block_attention_shapes"],
+        "cfg_step_seconds": lead["cfg_step_seconds"],
+        "cfg_step_collectives": lead["cfg_step_collectives"], "ring": lead["ring"],
+    })
+    if not tie["ok"]:
+        failures.append(f"parallel LLM stage: tokens diverge from the resident server's, not at a "
+                        f"rounding tie: {tie['divergences']}")
+    if k2 != k2_expected or ref_k2 != k2_expected or steps <= 0:
+        failures.append(f"parallel LLM stage: K2 by path {k2}, unsharded {ref_k2} (expected "
+                        f"{k2_expected}: 5 mma and 2 fma launches per layer per decode step, "
+                        f"{steps} steps)")
+    if lead["llm_counts"]["k1"] != k1_llm_expected or lead["llm_counts"]["k4"]:
+        failures.append(f"parallel LLM stage: K1 {lead['llm_counts']['k1']} (expected "
+                        f"{k1_llm_expected}), K4 {lead['llm_counts']['k4']}")
+    if not images_ok or sc["k2"] or sc["k4"] or sc["k3"] or sc["k1"] != k1_serve_expected \
+            or sc["k1_by_path"].get("wgmma") != sc["k1"] or 20 in heads or 5 not in heads:
+        failures.append(f"parallel diffusion: images ok {images_ok}, K1 {sc['k1']} "
+                        f"{sc['k1_by_path']} (expected {k1_serve_expected}, all wgmma), UNet "
+                        f"attention heads {sorted(heads)} "
+                        f"(local: 5 and 10, never 20), K2 {sc['k2']}, K3 {sc['k3']}, K4 {sc['k4']}")
+    for name in ("layer", "block"):
+        for r, x in enumerate(out[name]):
+            if not (x["ok"] and x["finite"]):
+                failures.append(f"parallel {name} on rank {r}: max diff {x['max_abs_diff']:.4g} = "
+                                f"{x['of_limit']:.3f} of the carried limit {x['carried_limit']:.4g}")
+    for k, x in lead["ring"].items():
+        if not x["ok"]:
+            failures.append(f"parallel ring attention {k}: max err {x['max_abs_err']:.3g} > "
+                            f"{RING_TOL}")
+    log(f"parallel serve (2 gloo ranks on one card, mesh (1, 2)): boot "
+        f"{out['boot_seconds'][0]:.1f}/{out['boot_seconds'][1]:.1f} s, boot peak "
+        f"{out['boot_peak_gib'][0]:.2f}/{out['boot_peak_gib'][1]:.2f} GiB, weights after sharding "
+        f"{out['weights_gib'][0]:.2f}/{out['weights_gib'][1]:.2f} GiB (resident single-device: "
+        f"phase 4's weights), serving peak {out['peak_gib'][0]:.2f}/{out['peak_gib'][1]:.2f} GiB; "
+        f"LLM formats {out['formats']}, TP kinds UNet {out['unet_kinds']} LLM {out['llm_kinds']} [{card}]")
+    log(f"parallel LLM stage ({TP_LLM_ROWS} prompts, {steps} decode steps): {out['llm_seconds']:.3f} s "
+        f"(generate {out['llm_ms_per_step']:.2f} ms per decode step, prefill included), K2 {k2} (expected {k2_expected}), "
+        f"K1 {out['llm_k1_launches']} (expected {k1_llm_expected}), collectives "
+        f"{out['llm_collectives']}; against the same stage on rank 0's unsharded model (K2 "
+        f"{ref_k2}): tokens identical {tie['identical']}, divergences {tie['divergences']}; "
+        f"captions {out['llm_captions']}")
+    log(f"parallel diffusion ({len(TP_EDIT_SEEDS)} edits, {EDIT_STEPS} + {EDIT_STEPS} steps, refiner "
+        f"{int(50 * 0.5)} of 50, 1024^2): {out['serve_seconds']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["serve_stage_seconds"].items())
+        + f"), K1 {sc['k1']} {sc['k1_by_path']} (expected {k1_serve_expected}), UNet attention (heads, tokens, calls) "
+        f"{out['unet_attention_heads']}, collectives {sc['collectives']}; images ok {images_ok}, "
+        f"largest uint8 difference from the resident server {levels}; one CFG UNet step (batch "
+        f"{2 * len(TP_EDIT_SEEDS)}): {out['cfg_step_seconds']:.3f} s, collectives "
+        f"{out['cfg_step_collectives']}")
+    for name in ("layer", "block"):
+        x = out[name][0]
+        log(f"parallel {name} by two ranks' shards vs unsharded: max diff {x['max_abs_diff']:.4g}, "
+            f"carried limit {x['carried_limit']:.4g} + 2^-8 |y| ({x['of_limit']:.3f} of it; rank 1 "
+            f"{out[name][1]['of_limit']:.3f})")
+    log(f"parallel block attention shapes {out['block_attention_shapes']}; layer K2 by path "
+        f"{out['layer_k2_by_path']}")
+    for k, x in out["ring"].items():
+        log(f"ring attention {RING_SHAPE} {k} over 2 gloo ranks: max err {x['max_abs_err']:.3g} "
+            f"(limit {RING_TOL}), {x['ms']:.1f} ms (plain on one rank {x['plain_ms']:.1f} ms), "
+            f"collectives {x['collectives']}")
+
+    with tempfile.TemporaryDirectory(prefix="ia2p-fsdp-") as d:
+        res, secs, failed = _spawn_ranks("train", 1, d, {})
+    out["train_ranks_seconds"] = secs
+    if failed:
+        failures.append(f"parallel FSDP train: {failed}")
+        return out
+    t = res[0]
+    per_step = _launches(k1=2 * TRAIN_LAYERS, k4=TRAIN_LAYERS, k4_wgmma=TRAIN_LAYERS)
+    plain, fsdp = t["plain"], t["fsdp"]
+    gn = (plain["metrics"]["grad_norm"], fsdp["metrics"]["grad_norm"])
+    out["fsdp"] = t
+    ok = (plain["metrics"]["loss"] == fsdp["metrics"]["loss"]
+          and abs(gn[0] - gn[1]) <= 2.0**-8 * abs(gn[0])
+          and plain["launches"] == per_step and fsdp["launches"] == per_step
+          and t["backend"] == "nccl")
+    if not ok:
+        failures.append(f"parallel FSDP train: loss {fsdp['metrics']['loss']!r} vs unsharded "
+                        f"{plain['metrics']['loss']!r}, grad norm {gn} (within 2^-8), launches "
+                        f"{fsdp['launches']} / {plain['launches']} (expected {per_step}), backend "
+                        f"{t['backend']}")
+    log(f"parallel FSDP2 train (NCCL, world {t['world']}, {TRAIN_LAYERS} of 32 layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_LEN}): first step loss {fsdp['metrics']['loss']!r} (unsharded "
+        f"{plain['metrics']['loss']!r}), grad norm {gn[1]!r} (unsharded {gn[0]!r}), first step "
+        f"{fsdp['seconds']:.3f} s (unsharded, the process's first: {plain['seconds']:.3f} s), "
+        f"second step {fsdp['second_step_seconds']:.3f} s (unsharded "
+        f"{plain['second_step_seconds']:.3f} s), peak {fsdp['peak_gib']:.2f} "
+        f"GiB (unsharded {plain['peak_gib']:.2f}), launches {fsdp['launches']}; "
+        f"{fsdp['sharded_params']} parameters sharded, {fsdp['replicated_params']} replicated "
+        f"[{card}]")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5532,6 +6290,8 @@ def main(argv=None) -> int:
                          "(QMV_FAULTS), K3 (K3_FAULTS) and K4 (K4_FAULTS) and show that the "
                          "checks refuse each while the real kernels pass")
     ap.add_argument("--out", help="also write every reading to this JSON file")
+    ap.add_argument("--rank", nargs=4, metavar=("KIND", "RANK", "WORLD", "DIR"),
+                    help=argparse.SUPPRESS)  # a rank of phase_parallel (_rank_main)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5542,6 +6302,9 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
+    if args.rank:
+        kind, rank, world, d = args.rank
+        return _rank_main(kind, int(rank), int(world), d)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5624,9 +6387,11 @@ def main(argv=None) -> int:
                "staged": full["staged_seconds"], "finetune": t_finetune, "codecs": t_codecs,
                "mpt": t_mpt, "clip_score": t_score, "tiny": t_tiny, "tiny_train": t_tiny_train,
                "tiny_adapters": t_tiny_s12, "tiny_slice13": time.time() - t0,
-               "total": time.time() - t_start}
+               "parallel": full.get("parallel_seconds"), "total": time.time() - t_start}
     edit, subject, serve = full["edit"], full["subject"], full["serve"]
     sw = full["switches"]
+    par = full.get("parallel", {})
+    par_fsdp = par.get("fsdp", {}).get("fsdp", {}).get("launches", {})
     # slice 12's and slice 13's paths, each with every counter read (phase_adapters,
     # phase_finetune*, phase_staged, phase_codecs, phase_mpt, phase_clip_score)
     s12 = {**full["adapters"]["paths"], **full["finetune_tree"]["paths"], **finetune["paths"],
@@ -5641,7 +6406,11 @@ def main(argv=None) -> int:
                 "speculative_forward_llm": sw["spec_k1_launches"],
                 "greedy_decode": sw["greedy_k1_launches"], "debug_call": sw["debug_k1_launches"],
                 "nodebug_call": sw["nodebug_k1_launches"], "prior_ddpm": sw["prior_ddpm_k1_launches"],
-                "clip_encode": sw["clip_k1_launches"], **{p: c["k1"] for p, c in s12.items()}}
+                "clip_encode": sw["clip_k1_launches"], **{p: c["k1"] for p, c in s12.items()},
+                # slice 14: rank 0 of the tensor-parallel server, the FSDP step
+                "parallel_serve_llm": par.get("llm_k1_launches", 0),
+                "parallel_serve_diffusion": par.get("serve_k1_launches", 0),
+                "parallel_fsdp_train": par_fsdp.get("k1", 0)}
     d80 = [r for r in rows if r["dtype"] == "bfloat16" and r["shape"][3] == 80]
     k1 = {
         "name": "flash_fwd",
@@ -5665,7 +6434,10 @@ def main(argv=None) -> int:
                 ("speculative_forward_llm", "spec"), ("greedy_decode", "greedy"),
                 ("debug_call", "debug"), ("nodebug_call", "nodebug"),
                 ("prior_ddpm", "prior_ddpm"), ("clip_encode", "clip"))},
-            **{p: c["k1_by_path"] for p, c in s12.items()}},
+            **{p: c["k1_by_path"] for p, c in s12.items()},
+            "parallel_serve_diffusion": par.get("serve_k1_by_path", {})},
+        # UNet attention calls of the tensor-parallel server by (local heads, tokens)
+        "parallel_attention_heads": par.get("unet_attention_heads"),
         # K1 launches with a zero-stride (broadcast) operand: pnp's shared Q/K
         "launches_broadcast_by_path": {p: c["k1_broadcast"] for p, c in s12.items()},
         "broadcast_shapes": full["adapters"]["k1_broadcast_rows"],
@@ -5686,6 +6458,10 @@ def main(argv=None) -> int:
         "kv_len_shapes": k4["k1_kv_len"],
         "training_shape": {k: k4["k1_kv_len"][0][k] for k in (
             "label", "shape", "kv_len", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "tp_shard_shape": {k: v for k, v in next(
+            r for r in rows if r["dtype"] == "bfloat16" and "TP shard" in r["label"]).items()
+            if k in ("label", "shape", "path", "ms", "ms_bshd", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by", "of_limit")},
         "served_batch_shape": {k: v for k, v in next(
             r for r in rows if r["dtype"] == "bfloat16" and r["shape"][0] == 8).items()
             if k in ("label", "shape", "path", "ms", "ms_bshd", "plain_ms", "library_ms",
@@ -5727,7 +6503,9 @@ def main(argv=None) -> int:
                              "nodebug_call": sw["nodebug_k2_launches"],
                              "prior_ddpm": sw["prior_ddpm_k2_launches"],
                              "clip_encode": sw["clip_k2_launches"],
-                             **{p: c["k2"] for p, c in s12.items()}},
+                             **{p: c["k2"] for p, c in s12.items()},
+                             "parallel_serve_llm": sum(par.get("llm_k2_by_path", {}).values()),
+                             "parallel_fsdp_train": par_fsdp.get("k2", 0)},
         # K2 launches with no fused prologue or epilogue: linears carrying adapters
         "launches_unfused_by_path": {p: c["k2_unfused"] for p, c in s12.items()},
         "lora_unmerged_step": finetune["lora_unmerged_step"],
@@ -5741,7 +6519,8 @@ def main(argv=None) -> int:
             "serve_run": serve["run_k2_by_path"], "tiny_greedy_decode": tiny["greedy_k2_by_path"],
             "tiny_server_llm": tiny["server"]["llm_k2_by_path"],
             "speculative_forward_llm": sw["spec_k2_by_path"], "greedy_decode": sw["greedy_k2_by_path"],
-            **{p: c["k2_by_path"] for p, c in s12.items()}},
+            **{p: c["k2_by_path"] for p, c in s12.items()},
+            "parallel_serve_llm": par.get("llm_k2_by_path", {})},
         "serve_llm_rows": serve["llm_k2_rows"],
         "speculative_rows": sw["spec_k2_rows"],
         "speculative_verify": {k: sw.get(k) for k in ("verify_ms_median", "verify_k2_ms",
@@ -5823,7 +6602,8 @@ def main(argv=None) -> int:
                 "serve": sum(serve[p + key] for p in ("llm_", "", "lcm_", "run_")),
                 "switches": sum(sw[p + key] for p in ("spec_", "greedy_", "debug_", "nodebug_",
                                                        "prior_ddpm_", "clip_")),
-                **{p: c[short] for p, c in s12.items()}}
+                **{p: c[short] for p, c in s12.items()},
+                "parallel_fsdp_train": par_fsdp.get(short, 0)}
 
     k4_paths = per_path("k4_launches")
 
@@ -5876,7 +6656,7 @@ def main(argv=None) -> int:
             json.dump({**result, "kernels": kernels}, f, indent=1, default=str)
     summary = {k: v for k, v in full.items()
                if k not in ("edit", "subject", "serve", "switches", "unet_step_profile", "adapters",
-                            "finetune_tree", "staged")}
+                            "finetune_tree", "staged", "parallel")}
     log(json.dumps({"full_width": summary, "tiny_reference": tiny, "seconds": seconds}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "step_profile"},
                     "tiny_train": tiny_train}, default=str))
@@ -5889,6 +6669,8 @@ def main(argv=None) -> int:
     log(json.dumps({"adapters": full["adapters"], "finetune_tree": full["finetune_tree"],
                     "finetune": {k: v for k, v in finetune.items() if k != "paths"},
                     "tiny_adapters": tiny_s12}, default=str))
+    log(json.dumps({"parallel": {k: v for k, v in par.items()
+                                 if k not in ("fsdp", "llm_stage_seconds")}}, default=str))
     log(json.dumps({"staged": {k: v for k, v in full["staged"].items() if k != "paths"},
                     "codecs": {k: v for k, v in codecs.items() if k != "paths"},
                     "mpt": {k: v for k, v in mpt.items() if k != "paths"},

@@ -37,10 +37,12 @@ import torch
 
 
 def save(path: str, state: Dict[str, Any]) -> int:
-    """Write `state` ({"params": module, "opt_state": {...}, "step": int})
-    to `path` atomically (a temporary file, then a rename). Returns the
-    file's size in bytes."""
-    blob = {"params": state["params"].state_dict(), "opt_state": state["opt_state"],
+    """Write `state` ({"params": module or its state dict, "opt_state":
+    {...}, "step": int}) to `path` atomically (a temporary file, then a
+    rename). Returns the file's size in bytes."""
+    params = state["params"]
+    sd = params.state_dict() if isinstance(params, torch.nn.Module) else params
+    blob = {"params": sd, "opt_state": state["opt_state"],
             "step": int(state["step"])}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"

@@ -32,6 +32,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from ..models import llama
+from ..parallel import sharding as tp
 
 
 class GenerateResult(NamedTuple):
@@ -83,7 +84,7 @@ def generate(
             s += pp
             prefix_pad = pp
     cache = llama.KVCache.create(cfg, b, max_len=s + max_new_tokens, dtype=inputs_embeds.dtype,
-                                 device=dev)
+                                 device=dev, kv_heads=llama.local_kv_heads(params, cfg))
     out = llama.forward(params, cfg, inputs_embeds=inputs_embeds, cache=cache, prefix_pad=prefix_pad)
     cache = out["cache"]
     per_row = isinstance(generator, (list, tuple))
@@ -92,7 +93,7 @@ def generate(
 
     def sample(logits, i):
         if temperature == 0.0:
-            return logits.argmax(dim=-1)
+            return tp.model_broadcast(logits.argmax(dim=-1))
         lg = logits.float() / temperature
         if gumbel is not None:
             g = gumbel[:, i].to(device=dev, dtype=torch.float32)
@@ -103,7 +104,9 @@ def generate(
             else:
                 u = torch.rand(lg.shape, generator=generator, device=dev)
             g = -torch.log(-torch.log(u.clamp_(min=1e-20)))
-        return (lg + g).argmax(dim=-1)
+        # under tensor parallelism every model rank must feed the same token
+        # back: model-rank 0's, not a trust in bitwise-equal logits
+        return tp.model_broadcast((lg + g).argmax(dim=-1))
 
     # rolling window of the last K emitted ids for keyword matching
     k_win = max((len(sq) for sq in stop_sequences), default=0)

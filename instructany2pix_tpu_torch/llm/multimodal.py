@@ -15,7 +15,7 @@ predictors, counterpart of the JAX package's `llm/multimodal.py`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -87,6 +87,12 @@ class Any2PixLM(nn.Module):
         self.vae_projector_audio = MLP2(cfg.audio_codec_dim, d, d)
         self.vae_predictor_image = MLP2(d, d, cfg.image_vocab_size or cfg.image_codec_dim)
         self.vae_predictor_audio = MLP2(d, d, cfg.audio_vocab_size or cfg.audio_codec_dim)
+
+    def forward(self, cfg: "Any2PixLMConfig", batch: Dict[str, torch.Tensor],
+                total: Optional[Callable] = None):
+        """`train_forward` through the module's call, so FSDP's hooks gather
+        the root's shards around it."""
+        return train_forward(self, cfg, batch, total or _local)
 
 
 def init(cfg: Any2PixLMConfig, generator: torch.Generator, device="cpu",
@@ -203,17 +209,23 @@ def preview_generations(params: Any2PixLM, cfg: Any2PixLMConfig,
             "has_gen": has_gen}
 
 
-def _head_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _head_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+               total: Callable = _local) -> torch.Tensor:
     """Continuous codec head: MSE over the masked positions times dim."""
     tgt = target[:, 1:]
     m = mask[:, 1:].float()[..., None]
     d = tgt.shape[-1]
     se = (pred.float() - tgt.float()).square() * m
-    denom = torch.clamp(m.sum() * d, min=1.0)
+    denom = torch.clamp(total(m.sum().detach()) * d, min=1.0)
     return se.sum() / denom * d
 
 
-def _ce_head_loss(logits: torch.Tensor, indices: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _ce_head_loss(logits: torch.Tensor, indices: torch.Tensor, mask: torch.Tensor,
+                  total: Callable = _local) -> torch.Tensor:
     """Discrete codec head: cross-entropy over codebook logits (no ×dim)."""
     logits = logits.float()
     tgt = indices[:, 1:]
@@ -221,13 +233,14 @@ def _ce_head_loss(logits: torch.Tensor, indices: torch.Tensor, mask: torch.Tenso
     logp = torch.log_softmax(logits, dim=-1)
     safe = tgt.long().clamp(0, logits.shape[-1] - 1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (nll * m).sum() / torch.clamp(total(m.sum().detach()), min=1.0)
 
 
 def train_forward(
     params: Any2PixLM,
     cfg: Any2PixLMConfig,
     batch: Dict[str, torch.Tensor],
+    total: Callable = _local,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss over the collator's dense batch (`train/data.py`):
     input_ids, labels, attention_mask (B, S); replacement_data
@@ -235,7 +248,13 @@ def train_forward(
     gen_target_image/gen_mask_image and gen_target_audio/gen_mask_audio;
     optionally extra_audio_frames and discrete gen_index_image/audio.
     The hidden state at p - 1 predicts the target at p. Returns (loss,
-    individual losses)."""
+    individual losses).
+
+    Every loss is a masked sum over a count. `total` maps a local count to
+    the global one (an all-reduce over "data" when the batch is sharded):
+    each rank's loss is then its share of the global ratio, and the shares
+    sum to the loss of the whole batch, as the JAX package computes it,
+    however the valid tokens fall across ranks."""
     labels = batch["labels"]
     embeds = _train_embeds(params, cfg, batch)
     rep_type = batch.get("replacement_type")
@@ -253,7 +272,7 @@ def train_forward(
     safe_labels = torch.where(valid, shift_labels, torch.zeros_like(shift_labels)).long()
     lse = torch.logsumexp(shift_logits, dim=-1)
     picked = torch.gather(shift_logits, -1, safe_labels[..., None])[..., 0]
-    loss_lang = ((lse - picked) * valid).sum() / torch.clamp(valid.sum(), min=1)
+    loss_lang = ((lse - picked) * valid).sum() / torch.clamp(total(valid.sum()), min=1)
     individual["loss_lang"] = loss_lang
     loss = loss_lang
 
@@ -265,21 +284,21 @@ def train_forward(
 
     if "gen_index_image" in batch:
         li = _ce_head_loss(predict_image_embedding(params, hidden[:, :-1]),
-                           batch["gen_index_image"], batch["gen_mask_image"])
+                           batch["gen_index_image"], batch["gen_mask_image"], total)
         individual["loss_img"] = li
         loss = loss + li
     elif "gen_target_image" in batch:
-        li = _head_loss(pred_img, batch["gen_target_image"], batch["gen_mask_image"])
+        li = _head_loss(pred_img, batch["gen_target_image"], batch["gen_mask_image"], total)
         individual["loss_img"] = li
         loss = loss + li
     if "gen_index_audio" in batch:
         la = _ce_head_loss(predict_audio_embedding(params, hidden[:, :-1]),
-                           batch["gen_index_audio"], batch["gen_mask_audio"])
+                           batch["gen_index_audio"], batch["gen_mask_audio"], total)
         individual["loss_aud"] = la
         loss = loss + la
     elif "gen_target_audio" in batch:
         la = _head_loss(predict_audio_embedding(params, hidden[:, :-1]),
-                        batch["gen_target_audio"], batch["gen_mask_audio"])
+                        batch["gen_target_audio"], batch["gen_mask_audio"], total)
         individual["loss_aud"] = la
         loss = loss + la
 
@@ -288,7 +307,7 @@ def train_forward(
         extra = (rep_type == REPLACEMENT_TYPE.BASE) | (rep_type == REPLACEMENT_TYPE.GEN)
         m = extra[:, 1:].float()[..., None]
         ae = (pred_img.float() - batch["replacement_data"][:, 1:].float()).abs() * m
-        denom = torch.clamp(m.sum() * pred_img.shape[-1], min=1.0)
+        denom = torch.clamp(total(m.sum().detach()) * pred_img.shape[-1], min=1.0)
         loss_extra = ae.sum() / denom
         individual["loss_extra"] = loss_extra
         loss = loss + loss_extra

@@ -110,12 +110,14 @@ def load_llm_heads(path: str, times=None) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def load_llm(path: str, cfg: mm_lib.Any2PixLMConfig, device, dtype: torch.dtype,
              quant_bits: Optional[int] = None, heads: Optional[Dict[str, torch.Tensor]] = None,
-             times=None) -> mm_lib.Any2PixLM:
+             times=None, tp_layout: bool = False) -> mm_lib.Any2PixLM:
     """The multimodal LLM from an HF directory: every shard, the Llama and
     the four heads (`model.vae_{projector,predictor}_{image,audio}.{0,2}`).
     `heads` (port tensors, `load_llm_heads`) replaces the heads it holds.
     With `quant_bits` each decoder layer is quantized as it lands and the
-    projections are fused at the end, as the random build does."""
+    projections are fused at the end, as the random build does.
+    `tp_layout` (a tensor-parallel server's LLM): o and down stay int8 and
+    nothing is fused (`parallel/sharding.py` shards the unfused names)."""
     km = mm_lib.keymap()
     with torch.device("meta"):
         m = mm_lib.Any2PixLM(cfg)
@@ -134,7 +136,8 @@ def load_llm(path: str, cfg: mm_lib.Any2PixLMConfig, device, dtype: torch.dtype,
         if quant_bits and g.startswith("llama.") and isinstance(child, (llama_lib.LlamaLayer,
                                                                        torch.nn.Linear)):
             t0 = time.perf_counter()
-            Q.quantize_llama(m.llama, bits=quant_bits)  # skips what is still on the meta device
+            # skips what is still on the meta device
+            Q.quantize_llama(m.llama, bits=quant_bits, tp_rows_int8=tp_layout)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             _add(times, "quantize", t0)
@@ -161,7 +164,7 @@ def load_llm(path: str, cfg: mm_lib.Any2PixLMConfig, device, dtype: torch.dtype,
     if unset:
         raise KeyError(f"{path}: the checkpoint leaves {len(unset)} parts of the LLM unset or "
                        f"incomplete, e.g. {unset[:8]}")
-    if quant_bits:
+    if quant_bits and not tp_layout:
         llama_lib.fuse_projections(m.llama)
     return m.eval().requires_grad_(False)
 
@@ -242,14 +245,16 @@ def load_imagebind(path: str, vision_cfg: imagebind_lib.ViTConfig,
 
 
 def load_pipeline_models(cfg, ckpt: str, llm_folder: str, device, dtype: torch.dtype,
-                         quant_bits: Optional[int] = None, times=None) -> Dict[str, torch.nn.Module]:
+                         quant_bits: Optional[int] = None, times=None,
+                         tp_layout: bool = False) -> Dict[str, torch.nn.Module]:
     """Every module of the pipeline from a reference-layout root (the JAX
     `load_pipeline_params`). The base UNet carries the IP-Adapter's
-    cross-attention weights and serves inpainting too."""
+    cross-attention weights and serves inpainting too. `tp_layout`: the
+    LLM as `load_llm` lays it out for tensor parallelism."""
     sdxl = os.path.join(ckpt, "sdxl-base")
     models: Dict[str, torch.nn.Module] = {}
     models["llm"] = load_llm(os.path.join(ckpt, llm_folder), cfg.llm, device, dtype, quant_bits,
-                             times=times)
+                             times=times, tp_layout=tp_layout)
     models["prior"] = load_prior(os.path.join(ckpt, "prior", "model.bin"), cfg.prior, device,
                                  dtype, times)
     ip_attn, proj = load_ip_adapter(os.path.join(ckpt, IP_ADAPTER), cfg.unet, times)

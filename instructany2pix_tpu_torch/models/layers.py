@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops import quant as Q
 from ..ops.groupnorm import group_norm as _group_norm
+from ..parallel import sharding as tp
 
 # ---------------------------------------------------------------- linear
 
@@ -66,13 +67,58 @@ def linear(
     which the JAX package adds last: the same sum in another order). The adapters
     must see the transformed activation, so with a quantized base and any
     of `norm`/`swiglu`/`residual` the prologue is composed here and K2 is
-    called without it (the JAX package's `"lora_a" not in p` rule)."""
+    called without it (the JAX package's `"lora_a" not in p` rule).
+
+    A linear tagged by `parallel.sharding.apply_tp_rules` holds this
+    rank's shard and runs with the collective its kind needs (`_tp_linear`)."""
+    kind = getattr(p, "tp", None)
+    if kind is not None:
+        return _tp_linear(p, x, kind, norm, swiglu, residual)
+    return _linear(p, x, norm, swiglu, residual)
+
+
+def _tp_linear(p, x, kind, norm, swiglu, residual):
+    """A tensor-parallel linear on this rank's shard: a column layer's
+    local outputs (plus its bias slice, all-gathered for "col_gather"); a
+    row layer's partial product all-reduced over "model", then the bias
+    and the residual added once (added inside every rank's product they
+    would count n_model times); "row_gather" gathers its sharded input and
+    runs whole."""
+    b = p.q.get("b") if isinstance(p, Q.QLinear) else p.bias
+    if kind in ("col", "col_gather"):
+        if residual is not None:
+            raise ValueError("a column-parallel linear takes no residual")
+        y = _linear(p, x, norm, swiglu, bias=False)
+        if b is not None:
+            lo, hi = p.tp_cols
+            y = y + b[lo:hi].to(y.dtype)
+        return tp.model_all_gather(y, -1) if kind == "col_gather" else y
+    if kind == "row":
+        if norm is not None:
+            raise ValueError("a row-parallel linear sees a slice of its input: no RMSNorm prologue")
+        y = tp.model_all_reduce(_linear(p, x, None, swiglu, bias=False))
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return y + residual.to(y.dtype) if residual is not None else y
+    if kind == "row_gather":
+        if swiglu:  # gather the gate and up halves apart: they pair elementwise
+            k = x.shape[-1] // 2
+            x = torch.cat([tp.model_all_gather(x[..., :k]), tp.model_all_gather(x[..., k:])], -1)
+        else:
+            x = tp.model_all_gather(x)
+        return _linear(p, x, norm, swiglu, residual)
+    raise ValueError(f"linear: tensor-parallel kind {kind!r}")
+
+
+def _linear(p, x, norm=None, swiglu=False, residual=None, bias: bool = True) -> torch.Tensor:
+    """`linear` on the tensors the module holds; `bias=False` leaves its
+    bias out."""
     fused = norm is not None or swiglu or residual is not None
     lora = has_lora(p)
     if isinstance(p, Q.QLinear):
         q = p.q
         if fused and (lora or not _use_qmv(p, x)):
-            y = linear(p, _fused_prologue(x, norm, swiglu))
+            y = _linear(p, _fused_prologue(x, norm, swiglu), bias=bias)
             return y + residual if residual is not None else y
         if _use_qmv(p, x):
             y = Q.qmatmul(
@@ -86,15 +132,16 @@ def linear(
             y = Q.int4_matmul(x, q)
         if lora:
             y = y + _lora_delta(p, x)
-        return y + q["b"].to(y.dtype) if "b" in q else y
+        return y + q["b"].to(y.dtype) if "b" in q and bias else y
     if fused:
-        y = linear(p, _fused_prologue(x, norm, swiglu))
+        y = _linear(p, _fused_prologue(x, norm, swiglu), bias=bias)
         return y + residual if residual is not None else y
+    b = p.bias if bias else None
     if lora:
         # the bias stays in the product, so zero adapters leave the output bit-identical
         x = x.to(p.weight.dtype)
-        return F.linear(x, p.weight, p.bias) + _lora_delta(p, x)
-    return F.linear(x.to(p.weight.dtype), p.weight, p.bias)
+        return F.linear(x, p.weight, b) + _lora_delta(p, x)
+    return F.linear(x.to(p.weight.dtype), p.weight, b)
 
 
 @torch.no_grad()
@@ -189,6 +236,11 @@ def conv2d(p: nn.Conv2d, x: torch.Tensor, stride: int = 1, padding: Padding = "S
         if t != b or l != r:
             raise ValueError(f"asymmetric padding {padding}: pad the input first")
         pad = (t, l)
+    if getattr(p, "tp", None) == "conv":
+        # this rank's output channels, gathered whole; the bias after the gather
+        y = F.conv2d(x.to(p.weight.dtype).permute(0, 3, 1, 2), p.weight, None, stride, pad)
+        y = tp.model_all_gather(y.permute(0, 2, 3, 1), -1)
+        return y + p.bias.to(y.dtype) if p.bias is not None else y
     y = F.conv2d(x.to(p.weight.dtype).permute(0, 3, 1, 2), p.weight, p.bias, stride, pad)
     return y.permute(0, 2, 3, 1)
 
@@ -203,8 +255,10 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 
 def embedding(p: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
-    """Out-of-range ids clamp (the JAX `mode="clip"`) instead of raising."""
-    return F.embedding(ids.long().clamp(0, p.num_embeddings - 1), p.weight)
+    """Out-of-range ids clamp (the JAX `mode="clip"`) instead of raising.
+    A table sharded on its hidden dim ("embed") is gathered after the lookup."""
+    y = F.embedding(ids.long().clamp(0, p.num_embeddings - 1), p.weight)
+    return tp.model_all_gather(y, -1) if getattr(p, "tp", None) == "embed" else y
 
 
 def timestep_embedding(

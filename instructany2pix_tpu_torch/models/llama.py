@@ -91,9 +91,10 @@ class KVCache:
 
     @staticmethod
     def create(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
-               dtype=torch.bfloat16, device="cpu") -> "KVCache":
+               dtype=torch.bfloat16, device="cpu", kv_heads: Optional[int] = None) -> "KVCache":
+        """`kv_heads`: the heads this rank holds (`local_kv_heads`), all by default."""
         max_len = max_len or cfg.max_seq_len
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        shape = (cfg.num_layers, batch, max_len, kv_heads or cfg.num_kv_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -111,6 +112,11 @@ class LlamaLayer(nn.Module):
         self.gate = nn.Linear(d, cfg.intermediate_size, bias=False)
         self.up = nn.Linear(d, cfg.intermediate_size, bias=False)
         self.down = nn.Linear(cfg.intermediate_size, d, bias=False)
+
+    def forward(self, x, cfg: LlamaConfig, mask=None, rope_cs=None, kv_len=None):
+        """The layer without a cache (training). Through the module's call,
+        so FSDP's hooks gather this layer's shards around it."""
+        return _block(self, x, cfg, mask, rope_cs, kv_len=kv_len)
 
 
 class Llama(nn.Module):
@@ -135,6 +141,13 @@ def _rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def local_kv_heads(params: Llama, cfg: LlamaConfig) -> int:
+    """The key/value heads this rank holds: all of them, or its shard's
+    under tensor parallelism."""
+    lay = params.layer_0
+    return lay.k.out_features // cfg.head_dim if hasattr(lay, "k") else cfg.num_kv_heads
 
 
 def embed(params: Llama, input_ids: torch.Tensor) -> torch.Tensor:
@@ -259,11 +272,18 @@ def _block(p: LlamaLayer, x, cfg: LlamaConfig, mask, rope_cs, cache_kv=None, cac
         q = qkv[..., :nq].reshape(b, s, cfg.num_heads, hd)
         k = qkv[..., nq:nq + nkv].reshape(b, s, cfg.num_kv_heads, hd)
         v = qkv[..., nq + nkv:].reshape(b, s, cfg.num_kv_heads, hd)
+    elif isinstance(p.q, Q.QLinear):
+        # unfused quantized projections (tensor-parallel decode: each holds
+        # this rank's heads): the RMSNorm rides each product's prologue,
+        # over the whole replicated x; heads are counted from the shard
+        q = L.linear(p.q, x, norm=in_norm).reshape(b, s, -1, hd)
+        k = L.linear(p.k, x, norm=in_norm).reshape(b, s, -1, hd)
+        v = L.linear(p.v, x, norm=in_norm).reshape(b, s, -1, hd)
     else:
         h = L.rms_norm(p.input_norm.g, x, cfg.rms_eps)
-        q = L.linear(p.q, h).reshape(b, s, cfg.num_heads, hd)
-        k = L.linear(p.k, h).reshape(b, s, cfg.num_kv_heads, hd)
-        v = L.linear(p.v, h).reshape(b, s, cfg.num_kv_heads, hd)
+        q = L.linear(p.q, h).reshape(b, s, -1, hd)
+        k = L.linear(p.k, h).reshape(b, s, -1, hd)
+        v = L.linear(p.v, h).reshape(b, s, -1, hd)
     q = _rope_apply(q, *rope_cs)
     k = _rope_apply(k, *rope_cs)
     if cache_kv is not None:
@@ -273,10 +293,14 @@ def _block(p: LlamaLayer, x, cfg: LlamaConfig, mask, rope_cs, cache_kv=None, cac
         o = dot_product_attention(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask, impl="xla")
     else:
         o = dot_product_attention(q, k, v, mask=mask, causal=True, kv_len=kv_len)
-    x = L.linear(p.o, o.reshape(b, s, cfg.num_heads * hd), residual=x)
+    x = L.linear(p.o, o.reshape(b, s, -1), residual=x)
     post_norm = (p.post_norm.g, cfg.rms_eps)
     if hasattr(p, "gate_up"):
         gu = L.linear(p.gate_up, x, norm=post_norm)
+        return L.linear(p.down, gu, swiglu=True, residual=x)
+    if isinstance(p.gate, Q.QLinear):
+        # the SwiGLU prologue pairs this rank's gate and up columns elementwise
+        gu = torch.cat([L.linear(p.gate, x, norm=post_norm), L.linear(p.up, x, norm=post_norm)], -1)
         return L.linear(p.down, gu, swiglu=True, residual=x)
     h = L.rms_norm(p.post_norm.g, x, cfg.rms_eps)
     return x + L.linear(p.down, L.silu(L.linear(p.gate, h)) * L.linear(p.up, h))
@@ -336,10 +360,10 @@ def forward(
         if cache is not None:
             x = _block(layer, x, cfg, mask, rope_cs, (cache.k[i], cache.v[i]), cache.length)
         elif cfg.remat and torch.is_grad_enabled():
-            x = _remat(functools.partial(_block, layer, cfg=cfg, mask=mask, rope_cs=rope_cs,
+            x = _remat(functools.partial(layer, cfg=cfg, mask=mask, rope_cs=rope_cs,
                                          kv_len=kv_len), cfg.remat_policy)(x)
         else:
-            x = _block(layer, x, cfg, mask, rope_cs, kv_len=kv_len)
+            x = layer(x, cfg, mask, rope_cs, kv_len=kv_len)
     hidden_norm = L.rms_norm(params.final_norm.g, x, cfg.rms_eps)
     logits = L.linear(params.lm_head, hidden_norm)
     out = {"logits": logits, "hidden": x, "hidden_norm": hidden_norm}
@@ -376,3 +400,27 @@ def hf_keymap() -> KeyMap:
          "rotary frequencies, recomputed from rope_theta"),
     ]
     return KeyMap(rules, ignore)
+
+
+# ------------------------------------------------------ tensor parallelism
+
+
+def shard_tp(params: Llama, cfg: LlamaConfig, mesh) -> Llama:
+    """Tensor-parallel LLaMA in place: this rank's shards by
+    `parallel.sharding.LLAMA_TP_RULES` (unfused projections only), the
+    attention projections split on whole heads. The 32009-wide vocab head
+    divides by no model axis of 2 or 4 and stays replicated, the JAX
+    fallback."""
+    from ..parallel import sharding as sh
+
+    sh.assert_unfused_for_tp(params)
+    return sh.apply_tp_rules(params, mesh, sh.LLAMA_TP_RULES, tp_unit(cfg))
+
+
+def tp_unit(cfg: LlamaConfig):
+    """The granule a tensor-parallel split keeps whole: a head for q, k, v
+    and o, else 1."""
+    def unit(path, m, kind):
+        return cfg.head_dim if path.rsplit(".", 1)[-1] in ("q", "k", "v", "o") else 1
+
+    return unit

@@ -133,6 +133,11 @@ def _resnet(p: ResnetBlock, x, temb):
     return x + h
 
 
+def _heads(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, S, heads·hd) → (B, S, heads, hd)."""
+    return t.reshape(t.shape[0], t.shape[1], -1, hd)
+
+
 class Attention(nn.Module):
     def __init__(self, dim, ctx_dim, with_ip=False):
         super().__init__()
@@ -163,18 +168,19 @@ def _attn(p: Attention, x, ctx, heads, ip_tokens=None, ip_scale=1.0, kv_pre=None
           tap_key=None):
     b, s, d = x.shape
     hd = d // heads
-    q = L.linear(p.to_q, x).reshape(b, s, heads, hd)
+    # heads counted from the projection: a tensor-parallel rank holds its shard's
+    q = _heads(L.linear(p.to_q, x), hd)
     if kv_pre is not None:
         k, v = kv_pre["k"], kv_pre["v"]
     else:
-        k = L.linear(p.to_k, ctx).reshape(b, -1, heads, hd)
-        v = L.linear(p.to_v, ctx).reshape(b, -1, heads, hd)
-    o = dot_product_attention(q, k, v).reshape(b, s, d)
+        k = _heads(L.linear(p.to_k, ctx), hd)
+        v = _heads(L.linear(p.to_v, ctx), hd)
+    o = dot_product_attention(q, k, v).reshape(b, s, -1)
     if kv_pre is not None and "k_ip" in kv_pre:
         o = o + ip_scale * _ip_attn(q, kv_pre["k_ip"], kv_pre["v_ip"], taps, tap_key)
     elif ip_tokens is not None and hasattr(p, "to_k_ip"):
-        k_ip = L.linear(p.to_k_ip, ip_tokens).reshape(b, -1, heads, hd)
-        v_ip = L.linear(p.to_v_ip, ip_tokens).reshape(b, -1, heads, hd)
+        k_ip = _heads(L.linear(p.to_k_ip, ip_tokens), hd)
+        v_ip = _heads(L.linear(p.to_v_ip, ip_tokens), hd)
         o = o + ip_scale * _ip_attn(q, k_ip, v_ip, taps, tap_key)
     return L.linear(p.to_out, o)
 
@@ -197,10 +203,10 @@ def _shared_qk_self_attn(p: Attention, h, heads):
     views with a zero batch stride, not copies."""
     b, s, d = h.shape
     hd = d // heads
-    q = L.linear(p.to_q, h).reshape(b, s, heads, hd)
-    k = L.linear(p.to_k, h).reshape(b, s, heads, hd)
-    v = L.linear(p.to_v, h).reshape(b, s, heads, hd)
-    o = dot_product_attention(q[:1].expand_as(q), k[:1].expand_as(k), v).reshape(b, s, d)
+    q = _heads(L.linear(p.to_q, h), hd)
+    k = _heads(L.linear(p.to_k, h), hd)
+    v = _heads(L.linear(p.to_v, h), hd)
+    o = dot_product_attention(q[:1].expand_as(q), k[:1].expand_as(k), v).reshape(b, s, -1)
     return L.linear(p.to_out, o)
 
 
@@ -215,7 +221,10 @@ def _tblock(p: TBlock, x, ctx, heads, ip_tokens, ip_scale, kv_pre=None, taps=Non
     x = x + _attn(p.attn2, h, ctx, heads, ip_tokens, ip_scale, kv_pre=kv_pre, taps=taps,
                   tap_key=tap_key)
     h = L.layer_norm(p.norm3, x)
-    a, g = L.linear(p.ff_in, h).chunk(2, dim=-1)
+    if hasattr(p, "ff_in_a"):  # split_geglu's halves
+        a, g = L.linear(p.ff_in_a, h), L.linear(p.ff_in_g, h)
+    else:
+        a, g = L.linear(p.ff_in, h).chunk(2, dim=-1)
     return x + L.linear(p.ff_out, a * L.gelu(g))
 
 
@@ -326,15 +335,14 @@ class UNet(nn.Module):
 
 
 def _cross_kv_one(p: Attention, ctx, heads, ip_tokens):
-    b = ctx.shape[0]
-    hd = p.to_q.out_features // heads
+    hd = p.to_q.in_features // heads
     out = {
-        "k": L.linear(p.to_k, ctx).reshape(b, -1, heads, hd),
-        "v": L.linear(p.to_v, ctx).reshape(b, -1, heads, hd),
+        "k": _heads(L.linear(p.to_k, ctx), hd),
+        "v": _heads(L.linear(p.to_v, ctx), hd),
     }
     if ip_tokens is not None and hasattr(p, "to_k_ip"):
-        out["k_ip"] = L.linear(p.to_k_ip, ip_tokens).reshape(b, -1, heads, hd)
-        out["v_ip"] = L.linear(p.to_v_ip, ip_tokens).reshape(b, -1, heads, hd)
+        out["k_ip"] = _heads(L.linear(p.to_k_ip, ip_tokens), hd)
+        out["v_ip"] = _heads(L.linear(p.to_v_ip, ip_tokens), hd)
     return out
 
 
@@ -470,3 +478,55 @@ def apply(
     h = L.group_norm(params.norm_out, h, silu=True)
     out = L.conv2d(params.conv_out, h)
     return (out, taps) if capture_ip_attn else out
+
+
+# ------------------------------------------------------ tensor parallelism
+
+
+@torch.no_grad()
+def split_geglu(params: UNet) -> UNet:
+    """In place: every transformer block's geglu `ff_in` (dim → 8·dim, value
+    half then gate half) becomes `ff_in_a` and `ff_in_g` (dim → 4·dim each),
+    exactly the two operands of a · gelu(g). Preserves the forward. Under
+    `UNET_TP_RULES` each half is column-parallel on its own, so the pairing
+    never crosses a shard boundary (a column shard of the fused weight puts
+    the value half on some ranks and the gate half on the others). Apply
+    after loading, before sharding."""
+    for m in params.modules():
+        if isinstance(m, TBlock) and hasattr(m, "ff_in"):
+            ff = m.ff_in
+            half = ff.out_features // 2
+            for name, sl in (("ff_in_a", slice(0, half)), ("ff_in_g", slice(half, 2 * half))):
+                lin = nn.Linear(ff.in_features, half, bias=ff.bias is not None,
+                                device=ff.weight.device, dtype=ff.weight.dtype)
+                lin.weight.data = ff.weight[sl].clone()
+                if ff.bias is not None:
+                    lin.bias.data = ff.bias[sl].clone()
+                setattr(m, name, lin.requires_grad_(ff.weight.requires_grad))
+            del m.ff_in
+    return params
+
+
+def tp_unit(cfg: UNetConfig):
+    """The granule a tensor-parallel split keeps whole, per module: a head
+    (of its level's width) for the attention projections, else 1."""
+    hd = {c: c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)}
+
+    def unit(path, m, kind):
+        if ".attn" in path and ".to_" in path:
+            width = m.in_features if kind == "row" else m.out_features
+            return hd.get(width, width)
+        return 1
+
+    return unit
+
+
+def shard_tp(params: UNet, cfg: UNetConfig, mesh) -> UNet:
+    """Tensor-parallel UNet in place: `split_geglu`, then this rank's shards
+    by `parallel.sharding.UNET_TP_RULES`. Attention projections split on
+    whole heads; a level whose heads do not divide keeps its attention
+    replicated (the JAX rules split its width mid-head and let GSPMD
+    re-lay it out)."""
+    from ..parallel import sharding as sh
+
+    return sh.apply_tp_rules(split_geglu(params), mesh, sh.UNET_TP_RULES, tp_unit(cfg))

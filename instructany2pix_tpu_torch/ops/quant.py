@@ -204,13 +204,15 @@ def quantize_tree(
     should_quantize: Optional[Callable[[str], bool]] = None,
     bits: int = 8,
     int4_grouped: bool = True,
+    int8_paths: Optional[Callable[[str], bool]] = None,
 ) -> nn.Module:
     """Replace every matched `nn.Linear` of `module` (by dotted name) with
     its `QLinear`, in place, one at a time: each float weight is freed as
     soon as its quantized copy exists. Linears still on the meta device
     are left for a later call, so a model can be quantized as it is built,
     layer by layer. Low-rank adapters (`layers.add_lora`) move to the
-    `QLinear` unchanged, in float. Returns `module`."""
+    `QLinear` unchanged, in float. `int8_paths` names linears kept at int8
+    whatever `bits` says. Returns `module`."""
     match = should_quantize or (lambda p: bool(_DEFAULT_PATTERN.search(p)))
     names = [n for n, m in module.named_modules() if isinstance(m, nn.Linear)]
     for name in names:
@@ -219,7 +221,8 @@ def quantize_tree(
         lin = getattr(parent, leaf)
         if lin.weight.is_meta or not match(name):
             continue
-        q = _quantize_bits(lin.weight.T, bits, int4_grouped)  # (in, out), the JAX layout
+        b = 8 if int8_paths is not None and int8_paths(name) else bits
+        q = _quantize_bits(lin.weight.T, b, int4_grouped)  # (in, out), the JAX layout
         if lin.bias is not None:
             q["b"] = lin.bias.detach()
         ql = QLinear(q)
@@ -232,10 +235,18 @@ def quantize_tree(
     return module
 
 
-def quantize_llama(module: nn.Module, bits: int = 8, int4_grouped: bool = True) -> nn.Module:
+_TP_ROWS = re.compile(r"layer_\d+\.(o|down)$")
+
+
+def quantize_llama(module: nn.Module, bits: int = 8, int4_grouped: bool = True,
+                   tp_rows_int8: bool = False) -> nn.Module:
     """Quantize every decoder linear (q/k/v/o/gate/up/down and lm_head) of
-    a port Llama in place; embeddings and norms stay as they are."""
-    return quantize_tree(module, bits=bits, int4_grouped=int4_grouped)
+    a port Llama in place; embeddings and norms stay as they are.
+    `tp_rows_int8` keeps the row-parallel layers (o, down) at int8, so a
+    tensor-parallel decode can shard their contraction dim: the packed
+    int4 rows are never row-split (`parallel/sharding.py`)."""
+    return quantize_tree(module, bits=bits, int4_grouped=int4_grouped,
+                         int8_paths=(lambda p: bool(_TP_ROWS.search(p))) if tp_rows_int8 else None)
 
 
 # -------------------------------------------- the decode matvec (K2), plain

@@ -215,9 +215,11 @@ def _random_module(make, device, dtype, gen) -> torch.nn.Module:
 
 @torch.no_grad()
 def _random_llm(cfg: mm_lib.Any2PixLMConfig, device, dtype, gen,
-                quant_bits: Optional[int]) -> mm_lib.Any2PixLM:
+                quant_bits: Optional[int], tp_layout: bool = False) -> mm_lib.Any2PixLM:
     """Random Any2PixLM. With `quant_bits` each decoder layer is quantized
-    as soon as it is built, so no float copy of the whole LLM exists."""
+    as soon as it is built, so no float copy of the whole LLM exists.
+    `tp_layout`: o and down at int8 and nothing fused, for tensor
+    parallelism (`loaders.load_llm`)."""
     with torch.device("meta"):
         m = mm_lib.Any2PixLM(cfg)
     for name, child in list(m.named_children()):
@@ -227,8 +229,9 @@ def _random_llm(cfg: mm_lib.Any2PixLMConfig, device, dtype, gen,
     for name, child in list(lm.named_children()):
         setattr(lm, name, L.init_(L.materialize(child, device, dtype), gen))
         if quant_bits:
-            Q.quantize_llama(lm, bits=quant_bits)  # skips layers still on the meta device
-    if quant_bits:
+            # skips layers still on the meta device
+            Q.quantize_llama(lm, bits=quant_bits, tp_rows_int8=tp_layout)
+    if quant_bits and not tp_layout:
         from .models import llama as llama_lib
 
         llama_lib.fuse_projections(lm)
@@ -268,8 +271,13 @@ class InstructAny2PixPipeline:
         llm_folder: str = "llm-retrained",
         llm_quant_bits: Optional[int] = None,
         models: Optional[Mapping[str, torch.nn.Module]] = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        # a mesh with a model axis (a tensor-parallel server, `serving.py`)
+        # takes the LLM unfused, with o and down at int8
+        self.mesh = mesh
+        tp_layout = mesh is not None and mesh.n_model > 1
+        self.device = resolve_device(device if device is not None or mesh is None else mesh.device)
         self.cfg = config or PipelineConfig()
         if self.cfg.llm is None:
             self.cfg = dataclasses.replace(self.cfg, llm=mm_lib.Any2PixLMConfig())
@@ -310,7 +318,8 @@ class InstructAny2PixPipeline:
             self.models = models
         elif from_disk:
             self.models = loaders.load_pipeline_models(self.cfg, ckpt, llm_folder, self.device,
-                                                       dtype, llm_quant_bits, self.boot_times)
+                                                       dtype, llm_quant_bits, self.boot_times,
+                                                       tp_layout=tp_layout)
         else:
             for name, (make, conv) in _meta_builders(self.cfg).items():
                 if params is not None:
@@ -319,7 +328,7 @@ class InstructAny2PixPipeline:
                     self.models[name] = _random_module(make, self.device, dtype, gen)
             self.models["llm"] = (
                 convert.llm(params["llm"], self.cfg.llm, self.device, dtype) if params is not None
-                else _random_llm(self.cfg.llm, self.device, dtype, gen, llm_quant_bits))
+                else _random_llm(self.cfg.llm, self.device, dtype, gen, llm_quant_bits, tp_layout))
         # a 9-channel inpaint UNet of its own; else the base UNet inpaints
         icfg = self.cfg.inpaint_unet
         if models is not None:

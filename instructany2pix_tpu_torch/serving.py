@@ -25,13 +25,22 @@ worker thread; the kernels build at their first launch under
 another build. A pipeline over a `core.staging.StagedParams` store (a card
 that cannot hold every model) serves too: the denoiser resolves the UNet
 from the store per batch (`params_provider`), and every stage looks its
-module up where it uses it. One device only: the JAX server's
-tensor-parallel mesh (ROADMAP Queue 1, item 10) is not ported, and a mesh
-of more than one device raises.
+module up where it uses it.
+
+On a mesh (`core/mesh.py`, one process per rank) the denoiser pads a batch
+to the data axis, each data rank denoises its rows with the UNet sharded
+over "model" (`models/unet.py::shard_tp`), and the rows are all-gathered
+back. `PipelineServer(pipe, mesh=...)` also shards the LLM over "model"
+(unfused projections, o and down at int8: `parallel/sharding.py`); rank 0
+owns the scheduler and every other rank follows it in lock-step (the
+microbatch is broadcast to them, the stages run on every rank, the data
+ranks' rows come back by the denoiser's all-gather). A staged store on a
+mesh of more than one device is refused, as the JAX server refuses it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -43,20 +52,17 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .core.mesh import DATA_AXIS, Mesh, batch_rows, shard_batch, use_mesh
 from .core.prng import row_normal
 from .diffusion import sampler as sampler_lib
 from .diffusion.schedulers import Schedule, SchedulerConfig
 from .models import unet as unet_lib
+from .parallel import collectives as C
+from .parallel import sharding as sh
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is None:
-        return
-    size = mesh.size() if callable(getattr(mesh, "size", None)) else len(mesh)
-    if size > 1:
-        raise NotImplementedError(
-            "the port serves from one device: a mesh of more than one is not ported yet "
-            "(ROADMAP Queue 1, item 10)")
+def _is_tp_sharded(module: torch.nn.Module) -> bool:
+    return any(getattr(m, "tp", None) is not None for m in module.modules())
 
 
 @dataclasses.dataclass
@@ -165,23 +171,43 @@ class BatchedDenoiser:
     `params_provider`: a zero-argument callable that returns the UNet,
     called once per batch instead of holding the module, so a
     `StagedParams` store may evict it between batches (the server passes
-    `lambda: pipe.models["unet"]`, `make_server` `lambda: unet`)."""
+    `lambda: pipe.models["unet"]`, `make_server` `lambda: unet`).
+
+    With a `mesh` of more than one rank (every rank builds its denoiser
+    and calls `denoise` in lock-step): the batch is padded to a multiple
+    of the data axis by repeating its last row, as the JAX denoiser pads
+    it, each data rank denoises its block of rows with the UNet sharded
+    over "model" (sharded here, in place, unless it already is), and the
+    blocks are all-gathered over "data"."""
 
     def __init__(self, params_provider: Callable[[], unet_lib.UNet],
-                 unet_cfg: unet_lib.UNetConfig, schedule: Optional[Schedule] = None, mesh=None):
-        _refuse_mesh(mesh)
+                 unet_cfg: unet_lib.UNetConfig, schedule: Optional[Schedule] = None,
+                 mesh: Optional[Mesh] = None):
         self._provider = params_provider
         self.cfg = unet_cfg
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        if self.mesh is not None and self.mesh.n_model > 1:
+            unet = params_provider()
+            if not _is_tp_sharded(unet):
+                unet_lib.shard_tp(unet, unet_cfg, self.mesh)
         self.schedule = schedule or Schedule.create(
             SchedulerConfig(), params_provider().conv_in.weight.device)
 
     def denoise(self, lat, ctx, ctx_u, pooled, pooled_u, tid, steps: int, guidance: float,
                 ip=None, ip_u=None, ip_scale: float = 1.0) -> torch.Tensor:
-        return sampler_lib.denoise(
-            self._provider(), self.cfg, self.schedule, lat, ctx, ctx_u, pooled, pooled_u, tid,
-            num_inference_steps=steps, guidance_scale=guidance, ip_tokens=ip,
-            ip_tokens_uncond=ip_u, ip_scale=ip_scale,
-        )
+        rows = [lat, ctx, ctx_u, pooled, pooled_u, tid, ip, ip_u]
+        n = lat.shape[0]
+        if self.mesh is not None:
+            rows = [None if x is None else shard_batch(x, self.mesh) for x in rows]
+        with (sh.tp_activation_constraints(self.mesh) if self.mesh is not None
+              else contextlib.nullcontext()):
+            out = sampler_lib.denoise(
+                self._provider(), self.cfg, self.schedule, *rows[:6], num_inference_steps=steps,
+                guidance_scale=guidance, ip_tokens=rows[6], ip_tokens_uncond=rows[7],
+                ip_scale=ip_scale)
+        if self.mesh is None:
+            return out
+        return C.all_gather(out, 0, self.mesh.group(DATA_AXIS))[:n]
 
     def run_batch(self, reqs: List[EditRequest]) -> List[np.ndarray]:
         dev = self._provider().conv_in.weight.device
@@ -209,7 +235,12 @@ class BatchedDenoiser:
 
 
 def make_server(unet, unet_cfg: unet_lib.UNetConfig, max_batch: int = 8,
-                max_wait_s: float = 0.05, mesh=None) -> BatchScheduler:
+                max_wait_s: float = 0.05, mesh: Optional[Mesh] = None) -> BatchScheduler:
+    """A scheduler over a `BatchedDenoiser` on one rank. A mesh of more than
+    one rank needs every rank in each batch: serve it through
+    `PipelineServer`, whose other ranks follow rank 0."""
+    if mesh is not None and mesh.size() > 1:
+        raise ValueError("make_server runs one rank; serve a mesh through PipelineServer")
     den = BatchedDenoiser(lambda: unet, unet_cfg, mesh=mesh)
     return BatchScheduler(den.run_batch, max_batch, max_wait_s).start()
 
@@ -307,37 +338,98 @@ class PipelineServer:
     take other GEMM algorithms. Subject consistency is a per-request
     feature and stays on the pipeline's `__call__`.
 
-    `max_batch` stays at most 16, the largest M of the decode matvec
-    (`ops.quant.QMV_MAX_M`), so every decode step of a batch runs on it.
+    `max_batch` stays at most 16 rows per data rank, the largest M of the
+    decode matvec (`ops.quant.QMV_MAX_M`), so every decode step of a batch
+    runs on it.
+
+    On a `mesh` of more than one rank every rank constructs the server
+    over its own pipeline (built with `mesh=`: the LLM unfused, o and down
+    at int8). The LLM (`llama.shard_tp`) and the UNet (`unet.shard_tp`,
+    which the inversion and the denoise both run) are sharded over
+    "model" in place; the other models stay replicated. Rank 0 owns the
+    scheduler: each microbatch is broadcast to the other ranks, whose
+    follower thread runs it in lock-step. The decode splits its rows over
+    "data", as the denoise does; both gather their rows back over "data",
+    so every rank ends a batch with every row, and rank 0 answers the
+    futures. `stop()` on rank 0 releases the followers; `wait()` on a
+    follower returns when it has been released.
     """
 
     def __init__(self, pipe, max_batch: int = 4, max_wait_s: float = 0.05, bucket: int = 64,
-                 max_new_tokens: int = 100, mesh=None):
+                 max_new_tokens: int = 100, mesh: Optional[Mesh] = None):
+        from .core.staging import StagedParams
+        from .models import llama as llama_lib
         from .ops import quant as Q
 
-        _refuse_mesh(mesh)
-        if max_batch > Q.QMV_MAX_M:
-            raise ValueError(f"max_batch {max_batch} > {Q.QMV_MAX_M}: the decode matvec takes "
-                             f"at most {Q.QMV_MAX_M} rows")
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        n_data = self.mesh.n_data if self.mesh is not None else 1
+        if max_batch > Q.QMV_MAX_M * n_data:
+            raise ValueError(f"max_batch {max_batch} > {Q.QMV_MAX_M} rows per data rank: the "
+                             f"decode matvec takes at most {Q.QMV_MAX_M} rows")
+        if self.mesh is not None and isinstance(pipe.models, StagedParams):
+            raise ValueError("a staged store is a one-device deployment; a mesh of more than "
+                             "one device holds every model resident and sharded")
         self.pipe = pipe
         self.bucket = bucket
         self.max_new_tokens = max_new_tokens
         self.last_generate = None
+        if self.mesh is not None and self.mesh.n_model > 1:
+            llm = pipe.models["llm"].llama
+            if not _is_tp_sharded(llm):
+                llama_lib.shard_tp(llm, pipe.cfg.llm.llama, self.mesh)
         # a staged store may evict the UNet between batches: resolve it per batch
         self.denoiser = BatchedDenoiser(lambda: pipe.models["unet"], pipe.cfg.unet,
-                                        schedule=pipe.schedule)
+                                        schedule=pipe.schedule, mesh=self.mesh)
+        self.scheduler = self._follower = None
+        self.follower_error: Optional[BaseException] = None
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._follower = threading.Thread(target=self._follow, daemon=True)
+            self._follower.start()
+            return
         self.scheduler = BatchScheduler(
-            self._run_batch, max_batch, max_wait_s,
+            self._lead if self.mesh is not None else self._run_batch, max_batch, max_wait_s,
             bucket_fn=lambda req: (req.num_inference_steps, req.cfg, req.refinement, req.scale,
                                    req.llm_gumbel is not None),
         )
         self.scheduler.start()
 
     def submit(self, req: PipelineRequest) -> Future:
+        if self.scheduler is None:
+            raise RuntimeError("requests go to rank 0's server; this rank follows it")
         return self.scheduler.submit(req)
 
     def stop(self):
+        if self.scheduler is None:
+            return self.wait()
         self.scheduler.stop()
+        if self.mesh is not None:
+            self.scheduler._thread.join()  # its batch's collectives come first
+            C.broadcast_objects([None])  # releases the followers
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """On a follower: wait until rank 0's `stop()` released it. True when
+        it has (re-raises a batch's error it hit)."""
+        if self._follower is None:
+            return True
+        self._follower.join(timeout)
+        if self.follower_error is not None:
+            raise self.follower_error
+        return not self._follower.is_alive()
+
+    def _lead(self, reqs: List[PipelineRequest]) -> List[PipelineResult]:
+        C.broadcast_objects([reqs])
+        return self._run_batch(reqs)
+
+    def _follow(self):
+        while True:
+            reqs = C.broadcast_objects([None])[0]
+            if reqs is None:
+                return
+            try:
+                self._run_batch(reqs)
+            except BaseException as e:  # noqa: BLE001 — out of lock-step: stop following
+                self.follower_error = e
+                return
 
     # ------------------------------------------------------------ stages
 
@@ -406,10 +498,14 @@ class PipelineServer:
                          * c.embed_norm)
         return auxes
 
-    @torch.inference_mode()
     def _llm_stage(self, reqs: List[PipelineRequest]):
         """One batched KV-cached generate over left-padded prompts, each row
         sampling from its own stream; then the per-row bookkeeping."""
+        with self._on_mesh():
+            return self._llm_rows(reqs)
+
+    @torch.inference_mode()
+    def _llm_rows(self, reqs: List[PipelineRequest]):
         from .llm import generate as gen_lib
 
         pipe = self.pipe
@@ -421,18 +517,27 @@ class PipelineServer:
                          for _, e in prepared])
         prefix_pads = torch.tensor([tgt - n for n in lens], device=pipe.device)
         eos_id = getattr(pipe.tokenizer, "eos_token_id", 2)
+        # each data rank decodes its block of rows (padded by the last row)
+        # and the blocks are gathered back over "data"
+        n = len(reqs)
+        start, stop, padded = (0, n, n) if self.mesh is None else batch_rows(n, self.mesh)
+        mine = [reqs[min(i, n - 1)] for i in range(start, stop)]
+        rows = torch.tensor([min(i, n - 1) for i in range(start, stop)], device=pipe.device)
         gumbel = gens = None
         if reqs[0].llm_gumbel is not None:
-            gumbel = torch.as_tensor(np.stack([np.asarray(r.llm_gumbel, np.float32) for r in reqs]))
+            gumbel = torch.as_tensor(np.stack([np.asarray(r.llm_gumbel, np.float32) for r in mine]))
         else:
             gens = [torch.Generator(pipe.device).manual_seed(int(r.seed) + SEED_OFFSETS["llm"])
-                    for r in reqs]
+                    for r in mine]
         with pipe._stage("serve_llm"):
             result = gen_lib.generate(
-                pipe.models["llm"].llama, pipe.cfg.llm.llama, emb, gens,
+                pipe.models["llm"].llama, pipe.cfg.llm.llama, emb[rows], gens,
                 max_new_tokens=self.max_new_tokens, temperature=0.3, eos_id=eos_id,
-                prefix_pads=prefix_pads, dynamic_stop=True, gumbel=gumbel,
+                prefix_pads=prefix_pads[rows], dynamic_stop=True, gumbel=gumbel,
             )
+        if self.mesh is not None and self.mesh.n_data > 1:
+            group = self.mesh.group(DATA_AXIS)
+            result = gen_lib.GenerateResult(*(C.all_gather(t, 0, group)[:n] for t in result))
         self.last_generate = result
         outs = []
         for i, (r, (ids, _)) in enumerate(zip(reqs, prepared)):
@@ -441,8 +546,22 @@ class PipelineServer:
                                               result.hiddens[i, :n_out], ids, aux[i], r.mm_data))
         return outs
 
-    @torch.inference_mode()
+    @contextlib.contextmanager
+    def _on_mesh(self):
+        """The mesh and the TP context for this thread: a worker thread
+        enters them itself, as ContextVars do not cross threads."""
+        if self.mesh is None:
+            yield
+            return
+        with use_mesh(self.mesh), sh.tp_activation_constraints(self.mesh):
+            yield
+
     def _run_batch(self, reqs: List[PipelineRequest]) -> List[PipelineResult]:
+        with self._on_mesh():
+            return self._run_stages(reqs)
+
+    @torch.inference_mode()
+    def _run_stages(self, reqs: List[PipelineRequest]) -> List[PipelineResult]:
         from . import pipeline as pipeline_mod
         from .codecs import image_io
         from .diffusion import img2img as i2i

@@ -15,17 +15,36 @@ step rather than torch's defaults:
 `grad_norm` is taken before clipping. The global norm is summed in
 float32 (optax sums in the gradients' dtype). Parameters and moments are
 updated in place; the state dict holds the module itself.
+
+With a mesh (`core/mesh.py`, one process per rank) the module is sharded
+by FSDP2 over every rank (`parallel/sharding.py::shard_params_fsdp`, per
+decoder layer and at the root), the batch over "data" (the model-axis
+ranks of one data group hold the same rows), and:
+  * every loss is normalised by its global count (`mm.train_forward`'s
+    `total`, an all-reduce over "data"), so the step's loss is the whole
+    batch's however the valid tokens fall across ranks;
+  * each rank back-propagates n_data times its share: FSDP's averaging
+    reduce-scatter over n_data · n_model ranks then leaves the sum over
+    data groups, once; the parameters FSDP leaves whole get the same
+    all-reduce by hand;
+  * the clip's global norm sums the squares of every shard once;
+  * the optimizer updates each rank's shards, its moments shaped alike.
+`full_state` gathers a checkpoint that is the one-process trainer's file,
+and `restore_state` loads such a file at any mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..core.mesh import DATA_AXIS, Mesh
 from ..llm import multimodal as mm
+from ..parallel import collectives as C
+from ..parallel import sharding as sh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,17 +86,21 @@ class Optimizer:
         self.cfg = cfg
 
     def init(self, params: torch.nn.Module) -> Dict[str, Any]:
-        ps = [p for p in params.parameters() if p.requires_grad]
+        """Moments shaped as each trainable parameter's local tensor (its
+        shard under FSDP)."""
+        ps = [sh.local(p) for p in params.parameters() if p.requires_grad]
         return {"count": 0, "mu": [torch.zeros_like(p) for p in ps],
                 "nu": [torch.zeros_like(p) for p in ps]}
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: Dict[str, Any]) -> torch.Tensor:
+               state: Dict[str, Any], g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one step in place; returns the global norm of `grads`
-        before clipping (a float32 0-d tensor)."""
+        before clipping (a float32 0-d tensor). `g_norm`, when given, is
+        that norm taken over every shard."""
         cfg = self.cfg
-        g_norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+        if g_norm is None:
+            g_norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
         clip = g_norm >= cfg.max_grad_norm
         count = state["count"] + 1
         lr = learning_rate(cfg, state["count"])
@@ -100,18 +123,31 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
 
 def make_train_step(
     model_cfg: mm.Any2PixLMConfig, train_cfg: TrainConfig = TrainConfig(),
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, Callable]:
     """Returns (init_state, train_step). `init_state(params)` wraps a
-    trainable `Any2PixLM`; `train_step(state, batch)` runs the loss, its
-    gradient and the optimizer update in place, and returns the state with
-    `step` advanced and the metrics (loss, grad_norm and the individual
-    losses, detached 0-d tensors)."""
+    trainable `Any2PixLM` (sharded by FSDP in place on a mesh);
+    `train_step(state, batch)` runs the loss, its gradient and the
+    optimizer update in place, and returns the state with `step` advanced
+    and the metrics (loss, grad_norm and the individual losses, detached
+    0-d tensors, the whole batch's on every rank). On a mesh `batch` is
+    the global batch, whose rows must divide by the data axis; each rank
+    takes its data group's rows."""
     tx = make_optimizer(train_cfg)
 
     def init_state(params: mm.Any2PixLM) -> Dict[str, Any]:
+        if mesh is not None:
+            from ..models.llama import LlamaLayer
+
+            for layer in params.llama.children():
+                if isinstance(layer, LlamaLayer):
+                    sh.shard_params_fsdp(layer, mesh)
+            sh.shard_params_fsdp(params, mesh)
         return {"params": params, "opt_state": tx.init(params), "step": 0}
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        if mesh is not None:
+            return _sharded_step(state, batch)
         params = state["params"]
         trainable = [p for p in params.parameters() if p.requires_grad]
         with torch.enable_grad():
@@ -125,7 +161,107 @@ def make_train_step(
         state["step"] += 1
         return state, metrics
 
+    def _sharded_step(state, batch):
+        params = state["params"]
+        rows = next(iter(batch.values())).shape[0]
+        if rows % mesh.n_data:
+            raise ValueError(f"a batch of {rows} rows does not divide the data axis "
+                             f"({mesh.n_data})")
+        from ..core.mesh import shard_batch
+
+        local_batch = shard_batch(batch, mesh)
+        data = mesh.group(DATA_AXIS)
+
+        def total(x):
+            return C.all_reduce(x, data)
+
+        trainable = [p for p in params.parameters() if p.requires_grad]
+        for p in trainable:
+            p.grad = None
+        with torch.enable_grad():
+            # through the module's call: FSDP gathers the root's shards around it
+            loss, individual = params(model_cfg, local_batch, total)
+            (loss * mesh.n_data).backward()
+        world = C.world() if mesh.size() > 1 else None
+        replicated = {id(p) for p in getattr(params, "fsdp_replicated", [])}
+        grads, sq_shards, sq_whole = [], [], []
+        for p in trainable:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            if id(p) in replicated:
+                if world is not None:
+                    g = C.all_reduce(g, world) / mesh.size()
+                sq_whole.append(g.float().square().sum())
+            else:
+                g = sh.local(g)
+                sq_shards.append(g.float().square().sum())
+            grads.append(g)
+        zero = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        sq = torch.stack(sq_shards).sum() if sq_shards else zero
+        if world is not None:
+            sq = C.all_reduce(sq, world)
+        g_norm = (sq + (torch.stack(sq_whole).sum() if sq_whole else zero)).sqrt()
+        tx.update([sh.local(p) for p in trainable], grads, state["opt_state"], g_norm)
+        for p in trainable:
+            p.grad = None
+        metrics = {"loss": total(loss.detach()), "grad_norm": g_norm,
+                   **{k: total(v.detach()) for k, v in individual.items()}}
+        state["step"] += 1
+        return state, metrics
+
     return init_state, train_step
+
+
+@torch.no_grad()
+def full_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A training state with every FSDP shard gathered whole (a collective:
+    every rank calls it): {"params": state dict, "opt_state", "step"}, the
+    blob the one-process trainer's checkpoint holds."""
+    from torch.distributed.tensor import DTensor
+
+    params = state["params"]
+    sd = {k: sh.full(v).detach().cpu() for k, v in params.state_dict().items()}
+    trainable = [p for p in params.parameters() if p.requires_grad]
+
+    def whole(moments):
+        out = []
+        for p, m in zip(trainable, moments):
+            if isinstance(p, DTensor):
+                m = DTensor.from_local(m, p.device_mesh, p.placements, shape=p.shape,
+                                       stride=p.stride()).full_tensor()
+            out.append(m.detach().cpu())
+        return out
+
+    opt = state["opt_state"]
+    return {"params": sd, "opt_state": {"count": opt["count"], "mu": whole(opt["mu"]),
+                                        "nu": whole(opt["nu"])},
+            "step": int(state["step"])}
+
+
+@torch.no_grad()
+def restore_state(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
+    """Load a checkpoint file (whole tensors, from any mesh or none) into
+    a state made by `init_state`, each tensor cut to this rank's shard.
+    Returns `state`."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    params = state["params"]
+    named = dict(params.named_parameters())
+    named.update(dict(params.named_buffers()))
+    missing = set(named) - set(blob["params"])
+    if missing:
+        raise KeyError(f"{path}: no tensors for {sorted(missing)[:4]}")
+    for name, t in named.items():
+        sh.local(t).copy_(sh.shard_like(blob["params"][name], t))
+    trainable = [p for p in params.parameters() if p.requires_grad]
+    opt = state["opt_state"]
+    for key in ("mu", "nu"):
+        if len(blob["opt_state"][key]) != len(trainable):
+            raise ValueError(f"{path}: {len(blob['opt_state'][key])} moments for "
+                             f"{len(trainable)} parameters")
+        for p, mine, whole in zip(trainable, opt[key], blob["opt_state"][key]):
+            mine.copy_(sh.shard_like(whole, p))
+    opt["count"] = int(blob["opt_state"]["count"])
+    state["step"] = int(blob["step"])
+    return state
 
 
 def make_preview_step(model_cfg: mm.Any2PixLMConfig) -> Callable:

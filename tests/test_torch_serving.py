@@ -156,9 +156,26 @@ def test_batched_denoiser_matches_jax_denoise():
 
 
 def test_a_mesh_of_several_devices_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving._refuse_mesh(["cuda:0", "cuda:1"])
-    serving._refuse_mesh(["cuda:0"])
+    """The refusal that stays: a staged store is a one-device deployment, so
+    a server over one on a mesh of more than one device is refused (as the
+    JAX server asserts); a one-device mesh serves it. A one-rank
+    `make_server` refuses a mesh of several."""
+    from instructany2pix_tpu_torch.core import mesh as M
+    from instructany2pix_tpu_torch.core.staging import StagedParams
+
+    class Pipe:
+        cfg = tpl.PipelineConfig.tiny()
+        schedule = Schedule.create()
+        models = StagedParams({"unet": lambda: t_unet.UNet(Pipe.cfg.unet)}, budget_bytes=1e12)
+
+    with pytest.raises(ValueError, match="staged store"):
+        serving.PipelineServer(Pipe(), mesh=M.abstract_mesh(1, 2))
+    with pytest.raises(ValueError, match="staged store"):
+        serving.PipelineServer(Pipe(), mesh=M.abstract_mesh(2, 1))
+    server = serving.PipelineServer(Pipe(), mesh=M.abstract_mesh(1, 1))
+    server.stop()
+    with pytest.raises(ValueError, match="PipelineServer"):
+        serving.make_server(None, Pipe.cfg.unet, mesh=M.abstract_mesh(2, 1))
 
 
 # ------------------------------------------------------------- generate

@@ -227,3 +227,60 @@ def stub_sentencepiece(monkeypatch):
 
 
 MASKED_TOKENIZER_PACKAGES = ("transformers", "tokenizers", "sentencepiece", "google.protobuf")
+
+
+# ------------------------------------------------ ranks of a torch.distributed mesh
+
+RANKS_SCRIPT = __file__.rsplit("/", 1)[0] + "/torch_port_ranks.py"
+SPAWN_TIMEOUT_S = 120.0
+
+
+def spawn_ranks(target: str, world: int, tmp_path, payload=None,
+                timeout: float = SPAWN_TIMEOUT_S) -> list:
+    """Run `torch_port_ranks.<target>(payload, mesh)` in `world` processes
+    (one per rank, gloo on the CPU) and return each rank's result, in rank
+    order. Rendezvous through a `file://` under `tmp_path`, so pytest-xdist
+    workers never share a port; one torch thread per child; the children
+    import neither JAX nor the JAX package. The group is joined within
+    `timeout` seconds, after which every child is killed and the test
+    fails: a hung collective cannot outlive its test."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import time
+    import uuid
+
+    run = tmp_path / f"ranks_{target}_{uuid.uuid4().hex[:8]}"
+    run.mkdir()
+    (run / "payload.pkl").write_bytes(pickle.dumps(payload))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    procs = []
+    for r in range(world):
+        log = open(run / f"rank{r}.log", "wb")
+        procs.append((subprocess.Popen([sys.executable, RANKS_SCRIPT, target, str(r), str(world),
+                                        str(run)], stdout=log, stderr=subprocess.STDOUT,
+                                       env=env), log))
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        for r, (p, _) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {r} did not finish within {timeout:.0f} s"
+                break
+            if rc != 0:
+                failed = f"rank {r} exited with {rc}"
+                break
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if failed:
+        logs = "\n".join(f"--- rank {r}\n" + (run / f"rank{r}.log").read_text(errors="replace")[-3000:]
+                         for r in range(world))
+        pytest.fail(f"{target}: {failed}\n{logs}")
+    return [pickle.loads((run / f"rank{r}.out.pkl").read_bytes()) for r in range(world)]
