@@ -28,6 +28,12 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
       function is held against the plain backward within chip_smoke.K4_TOL.
       The diag_* copies drop a piece of the work to show what it costs and
       give wrong gradients. The zeroing and cast are also timed alone.
+  python3 benchmarks_torch/k4_ab.py --device --out build/k4_device.json
+      This tree only: every bf16 row's whole backward (`flash_bwd_cuda`,
+      the accumulator's zeroing and cast included) timed eagerly with CUDA
+      events, on the device alone from a CUDA graph of its calls, and the
+      host's cost of issuing one call: a row whose eager time is near its
+      host cost is host-bound.
 
 The harness (builds, turns, patched copies) is kernel_ab.py's. The last
 line of output is the JSON summary; --out also writes every row.
@@ -168,7 +174,7 @@ _ATOMICS = """      const int dq_rows = min(kQRows, p.Sq - q0);
         if (row < dq_rows) {
           float* arow = acc + (int64_t)(q0 + row) * p.qas;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < L::kDqCols / 8; ++j) {
             atomicAdd(reinterpret_cast<float2*>(arow + 8 * j),
                       make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]));
           }
@@ -200,10 +206,11 @@ def variants(header):
                      src: [("    p.delta = delta;\n",
                             "    p.delta = delta;\n    p.dq_acc = dq_acc;\n    p.qab = strides[21], "
                             "p.qah = strides[22], p.qas = strides[23];\n")]}, True),
-        "diag_no_dq_add": ({hdr: [("tma_reduce_add(&tdq,", "if (box < 0) tma_reduce_add(&tdq,")]},
-                           False),
-        "diag_no_dq": ({hdr: [("Wgmma<64>::tt(dq,", "if (kk < 0) Wgmma<64>::tt(dq,"),
-                              ("tma_reduce_add(&tdq,", "if (box < 0) tma_reduce_add(&tdq,")]},
+        "diag_no_dq_add": ({hdr: [("tma_reduce_add(&maps.dq,",
+                                   "if (box < 0) tma_reduce_add(&maps.dq,")]}, False),
+        "diag_no_dq": ({hdr: [("Wgmma<64>::tt(part<0, 32>(dq),",
+                               "if (kk < 0) Wgmma<64>::tt(part<0, 32>(dq),"),
+                              ("tma_reduce_add(&maps.dq,", "if (box < 0) tma_reduce_add(&maps.dq,")]},
                        False),
         "diag_no_exp": ({hdr: [("float x = ex2(s[4 * j + e] * scale2",
                                 "float x = (s[4 * j + e] * scale2")]}, False),
@@ -268,11 +275,39 @@ def run_variants(out):
                              "failures": failures}, out, failures)
 
 
+def run_device(out):
+    cs = kernel_ab.child_module(ROOT)
+    import torch
+
+    from instructany2pix_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for si, label, shape, sk, causal, kv, dname in _rows(cs):
+        args = _inputs(si, tuple(shape), sk, causal, kv, dname)
+
+        def call():
+            return fa.flash_bwd_cuda(*args)
+
+        eager = cs.time_ms(call, 20)
+        device, host = kernel_ab.device_host(cs, call)
+        rows.append({"label": label, "shape": shape, "sk": sk, "causal": causal, "kv_len": kv,
+                     "eager_ms": eager, "device_ms": device, "host_ms": host,
+                     "bound_ms": cs.k4_bound(tuple(shape), sk, causal, kv, dname)["bwd"][0]})
+        r = rows[-1]
+        print(f"{label:24s} eager {eager:.4f} device {device} host {host:.4f} bound "
+              f"{r['bound_ms']:.4f}", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return kernel_ab.finish({"card": cs.card_line(), "rows": rows}, out, [])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="another commit, unpacked: time it against this tree")
     ap.add_argument("--variants", action="store_true",
                     help="time the VARIANTS copies of the fused kernel")
+    ap.add_argument("--device", action="store_true",
+                    help="time this tree's rows eagerly, on the device and on the host")
     ap.add_argument("--child", nargs=2, help=argparse.SUPPRESS)
     ap.add_argument("--out", help="also write every row to this JSON file")
     args = ap.parse_args(argv)
@@ -288,7 +323,9 @@ def main(argv=None):
         return ab(Path(args.parent).resolve(), args.out)
     if args.variants:
         return run_variants(args.out)
-    ap.error("give --parent or --variants")
+    if args.device:
+        return run_device(args.out)
+    ap.error("give --parent, --variants or --device")
 
 
 if __name__ == "__main__":

@@ -103,8 +103,8 @@ against the router's plain masked path, and K4 (the flash backward)
 against the plain backward at the Llama training shape with and without
 ragged rows, sq != sk, ragged D = 80, the UNet shape, the scalar path and
 float32, on contiguous inputs and (B, S, H, D) views (K4_TOL): the whole
-backward (`flash_bwd_cuda`: the fused TMA/wgmma kernel at bf16 head_dim 64
-and 128, which every such row must report, K4a then K4b otherwise) and,
+backward (`flash_bwd_cuda`: the fused TMA/wgmma kernel at bf16 head_dim 64,
+80 and 128, which every such row must report, K4a then K4b otherwise) and,
 at the rows K4a then K4b serve, K4a and K4b on their own, each timed
 beside its bound, the plain backward and SDPA's backward. After phase 4 (its pipeline freed),
 the trainer at full width: `train.launch.train` on Vicuna-7B's widths with
@@ -965,20 +965,23 @@ FN_SHAPES = [
     ("float32 ragged", (2, 300, 4, 64), (300, 123), "float32"),
 ]
 # Deliberately broken copies of K4 that the check must refuse: the first four
-# patch the two-kernel path (csrc/flash_bwd.cu), which the whole backward
-# takes at D = 80, 72 and in float32 and the check also runs on its own
-# there; the fused_* ones patch the fused wgmma kernel (flash_bwd_sm90.cuh).
+# patch the two-kernel fma path (csrc/flash_bwd.cu), which the whole backward
+# takes at head_dim 72 and in float32 and the check also runs on its own
+# there; the fused_* ones patch the fused wgmma kernel (flash_bwd_sm90.cuh),
+# the fused_d80_* ones its head_dim 80 tail boxes.
 K4_FAULTS = {
     "delta_dropped": (
         "K4a: ds = p * dp * scale, without delta",
-        "s[j][e] = p * (dp[j][e] - delta_r[r]) * a.scale;", "s[j][e] = p * dp[j][e] * a.scale;"),
+        "ds_s[pi] = to_f(from_f<T>(p * (dp - del_s[r]) * a.scale));",
+        "ds_s[pi] = to_f(from_f<T>(p * dp * a.scale));"),
     "causal_start_late": (
         "K4b: the causal query loop starts one tile late",
-        "if (a.causal) qt0 = (max(key0 - offset, 0) / kTile) * kTile;",
-        "if (a.causal) qt0 = (max(key0 - offset, 0) / kTile + 1) * kTile;"),
+        "if (a.causal) qs0 = (max(key0 - offset, 0) / kSTile) * kSTile;",
+        "if (a.causal) qs0 = (max(key0 - offset, 0) / kSTile + 1) * kSTile;"),
     "ds_scale_missing": (
         "K4b: ds = p * (dp - delta), without the scale",
-        "dp[j][e] = p * (dp[j][e] - dl) * a.scale;", "dp[j][e] = p * (dp[j][e] - dl);"),
+        "ds_s[pi] = to_f(from_f<T>(p * (dp - del_s[j]) * a.scale));",
+        "ds_s[pi] = to_f(from_f<T>(p * (dp - del_s[j])));"),
     "kv_len_ignored": (
         "K4a and K4b: every row sees all Sk keys (kv_len is not passed on to the kernels)",
         "  a.kv_len = kv_len;\n", "  a.kv_len = nullptr;\n"),
@@ -992,8 +995,8 @@ K4_FAULTS = {
         "const int qt0 = p.causal ? max(key0 - offset, 0) / kQRows + 1 : 0;", "flash_bwd_sm90.cuh"),
     "fused_dq_partial_tile_dropped": (
         "fused path: dq of a partial query tile (Sq not a multiple of 64) is never added",
-        "if (ct == 0) {  // one thread issues both reduce-adds",
-        "if (ct == 0 && q0 + kQRows <= p.Sq) {  // one thread issues both reduce-adds",
+        "if (ct == 0) {  // one thread issues every reduce-add",
+        "if (ct == 0 && q0 + kQRows <= p.Sq) {  // one thread issues every reduce-add",
         "flash_bwd_sm90.cuh"),
     "fused_kv_len_tail_unmasked": (
         "fused path: keys at or past kv_len[b] are not masked",
@@ -1004,17 +1007,35 @@ K4_FAULTS = {
         "const uint32_t q_tile = ring + stage * L::kStageBytes;",
         "const uint32_t q_tile = ring + ((stage + 1) % kStages) * L::kStageBytes;",
         "flash_bwd_sm90.cuh"),
+    "fused_d80_tail_kstep_dropped": (
+        "fused path, head_dim 80: S^T = K.Q^T skips its 5th k-step (columns 64-79)",
+        "        Wgmma<64>::ss(s, desc(k_tail + cw * 64 * kTailRow, 16, 8 * kTailRow, 32),",
+        "        if (cw < 0) Wgmma<64>::ss(s, desc(k_tail + cw * 64 * kTailRow, 16, 8 * kTailRow, 32),",
+        "flash_bwd_sm90.cuh"),
+    "fused_d80_dq_tail_never_added": (
+        "fused path, head_dim 80: dQ's 16-column tail box is never reduce-added (dq's columns "
+        "64-79 stay 0)",
+        "tma_reduce_add(&maps.dq_tail, dq_buf + 2 * kQHalf, kMainCols, q0, h, b);",
+        "if (q0 < 0) tma_reduce_add(&maps.dq_tail, dq_buf + 2 * kQHalf, kMainCols, q0, h, b);",
+        "flash_bwd_sm90.cuh"),
+    "fused_d80_dv_tail_dropped": (
+        "fused path, head_dim 80: dV's n16 wgmma on dO's tail box never runs",
+        "Wgmma<kTail>::rs(part<kMainCols / 2, kTail / 2>(dv), pa[kk],",
+        "if (kk < 0) Wgmma<kTail>::rs(part<kMainCols / 2, kTail / 2>(dv), pa[kk],",
+        "flash_bwd_sm90.cuh"),
+    "fused_d80_dq_tail_unswizzled": (
+        "fused path, head_dim 80: dQ's tail box is written to shared memory without the 64-byte "
+        "swizzle",
+        "const int chunk = (2 * (j - 8) + (t4 >> 1)) ^ ((row >> 1) & 3);",
+        "const int chunk = 2 * (j - 8) + (t4 >> 1);", "flash_bwd_sm90.cuh"),
 }
 
 
 def k4_path_expected(dname, d):
     """The path of the whole backward (`flash_bwd_cuda`) for rows with
-    16-byte aligned strides: the fused wgmma kernel for bf16 at head_dim 64
-    and 128, K4a and K4b on mma.sync for bf16 at 80, on the scalar fma loop
-    otherwise."""
-    if dname != "bfloat16":
-        return "fma"
-    return {64: "wgmma", 128: "wgmma", 80: "mma"}.get(d, "fma")
+    16-byte aligned strides: the fused wgmma kernel for bf16 at head_dim 64,
+    80 and 128, K4a and K4b on the scalar fma loop otherwise."""
+    return "wgmma" if dname == "bfloat16" and d in (64, 80, 128) else "fma"
 
 
 def reset_k4(fa):

@@ -80,7 +80,6 @@ constexpr int kRows = 128;     // query rows per block: two consumer warpgroups 
 constexpr int kThreads = 384;  // the producer warpgroup, then the two consumers
 constexpr int kWarpRows = 16;  // rows of a consumer warp, each staging its own bias rows
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may have on the H100
 
 // Keys per k/v tile and stages of the ring, per head dim. On the H100, 128
 // keys beat 64 at both head dims and matched or beat 176 (PERF.md, from
@@ -202,14 +201,6 @@ struct RelPos2dBias {  // K3: logit + bh[t, key / G] + bw[t, key % G]
     return x + row[c.u] + row[kWarpRows * gp + c.w];
   }
 };
-
-// N floats of an accumulator array from Off on, as an array of its own:
-// the wgmma of D = 80's first 64 columns and that of its last 16 share `o`.
-template <int Off, int N, int M>
-__device__ __forceinline__ float (&part(float (&a)[M]))[N] {
-  static_assert(Off + N <= M, "part out of range");
-  return *reinterpret_cast<float(*)[N]>(&a[Off]);
-}
 
 template <>
 struct Wgmma<176> {  // S = Q.K^T with 176-key tiles (a tile size measured, not the default)

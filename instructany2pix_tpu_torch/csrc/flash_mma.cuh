@@ -1,10 +1,10 @@
 // Pieces shared by the flash-attention kernels: K1 and K3 (flash_fwd.cu,
-// flash_fwd_sm90.cuh) and K4 (flash_bwd.cu). The kv_len bound, conversions
-// between the element types and float, bf16 packing, and the warp-level
-// tensor-core product mma.sync m16n8k16 for bf16 with float32 accumulators
-// (K4a and K4b at head_dim 80).
+// flash_fwd_sm90.cuh) and K4 (flash_bwd.cu, flash_bwd_sm90.cuh). The kv_len
+// bound, conversions between the element types and float, and bf16
+// packing of float32 accumulators into operand registers.
 //
-// Fragment layout of m16n8k16 (groupID g = lane / 4, t4 = lane % 4):
+// A wgmma's registers are laid out per warp as m16n8k16 fragments
+// (groupID g = lane / 4, t4 = lane % 4):
 //   A (16 x 16, row-major), four 32-bit registers of two elements each:
 //     a0 = (row g, cols 2t4, 2t4+1), a1 = (row g+8, same cols),
 //     a2 = (row g, cols 2t4+8, +9),  a3 = (row g+8, cols 2t4+8, +9);
@@ -50,21 +50,6 @@ struct MmaOps<__nv_bfloat16> {
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
-  }
-  // two bf16 elements, lo first, as one operand register
-  static __device__ __forceinline__ uint32_t join(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-    __nv_bfloat162 v;
-    v.x = lo;
-    v.y = hi;
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 };
 

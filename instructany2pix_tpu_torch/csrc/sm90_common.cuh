@@ -8,7 +8,8 @@
 //     wgmma in flight uses;
 //   * Wgmma<N>: m64nNk16 bf16 products with float32 accumulators, A from
 //     shared memory (`ss`, both operands K-major; `tt`, both MN-major) or
-//     from registers (`rs`, B MN-major);
+//     from registers (`rs`, B MN-major), and `part`, which hands a wgmma
+//     a slice of a wider accumulator (head_dim 80: 64 + 16 columns);
 //   * View and encode: 4-D TMA tensor maps (D, S, H, B) of bf16 operands
 //     built on the host from the tensors' own strides, in boxes of 64
 //     columns with the 128-byte swizzle or of 16 with the 32-byte one.
@@ -31,6 +32,7 @@ namespace sm90 {
 
 constexpr int kBoxCols = 64;   // elements per TMA box along D: one 128-byte swizzle row
 constexpr int kRowBytes = 128;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may have on the H100
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -185,6 +187,17 @@ struct Wgmma<16> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
+  // D (+)= A.B, A and B from shared memory, both MN-major (both transpose
+  // bits); scale_d = 0 overwrites D
+  static __device__ __forceinline__ void tt(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
 };
 
 template <>
@@ -280,6 +293,15 @@ struct Wgmma<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
+
+// N floats of an accumulator array from Off on, as an array of its own:
+// at head_dim 80 the wgmma of the first 64 columns and that of the last 16
+// (the tail box) share one accumulator.
+template <int Off, int N, int M>
+__device__ __forceinline__ float (&part(float (&a)[M]))[N] {
+  static_assert(Off + N <= M, "part out of range");
+  return *reinterpret_cast<float(*)[N]>(&a[Off]);
+}
 
 // A (B, H, S, D) bf16 operand: base pointer and element strides.
 struct View {

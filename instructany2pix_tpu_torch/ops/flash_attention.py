@@ -7,8 +7,8 @@ versions.
 launches K1 (`csrc/flash_fwd.cu`) and, when an input needs a gradient, the
 backward computes delta = rowsum(dO * O) in float32, as the JAX wrapper does
 outside Pallas, and launches K4 (`flash_bwd_cuda`, `csrc/flash_bwd.cu`): one
-fused TMA/wgmma kernel for dq, dk and dv at bf16 head_dim 64 and 128 (dq
-added into a zeroed float32 accumulator that is rounded once after the
+fused TMA/wgmma kernel for dq, dk and dv at bf16 head_dim 64, 80 and 128
+(dq added into a zeroed float32 accumulator that is rounded once after the
 kernel), K4a (dq) then K4b (dk, dv) otherwise. K4a and K4b also stay
 callable on their own (`flash_bwd_dq_cuda`, `flash_bwd_dkv_cuda`). On a CPU
 tensor both directions run the plain versions: `_reference_attention`
@@ -290,9 +290,9 @@ def _launch_bwd(name, outs, q, k, v, g, lse, delta, causal, scale, kv_len) -> bo
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_len=None):
     """Launch K4a on PyTorch's current stream: dq from the saved lse and
     delta (float32, (B, H, Sq), contiguous). dq comes from
-    `torch.empty_like(q)`. mma.sync for bf16 at head_dim 80 with 16-byte
-    aligned rows, fma otherwise. Raises on input the kernel does not take
-    and on a refused launch."""
+    `torch.empty_like(q)`. float32 fma on the CUDA cores at every dtype and
+    head dim (the tensor-core backward is `flash_bwd_cuda`'s fused kernel).
+    Raises on input the kernel does not take and on a refused launch."""
     dq = torch.empty_like(q)
     if _launch_bwd("ia2p_flash_bwd_dq", (dq,), q, k, v, g, lse, delta, causal, scale, kv_len):
         flash_bwd_dq_cuda.launches += 1
@@ -314,8 +314,9 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_le
 flash_bwd_dkv_cuda.launches = 0  # K4b launches in this process
 
 
-K4_PATHS = ("fma", "mma", "wgmma")  # ia2p_flash_bwd_last_path's codes
-WGMMA_BWD_HEAD_DIMS = (64, 128)  # bf16 head dims of the fused kernel
+# ia2p_flash_bwd_last_path's codes; no kernel of the library reports 1, "mma"
+K4_PATHS = ("fma", "mma", "wgmma")
+WGMMA_BWD_HEAD_DIMS = (64, 80, 128)  # bf16 head dims of the fused kernel
 
 
 def _fused_bwd_lib():
@@ -339,10 +340,10 @@ def _fused_bwd_lib():
 def flash_bwd_cuda(q, k, v, g, lse, delta, causal: bool, scale: float, kv_len=None):
     """Launch K4 on PyTorch's current stream: (dq, dk, dv) from the saved lse
     and delta (float32, (B, H, Sq), contiguous), each from `torch.empty_like`
-    of its input. bf16 at head_dim 64 and 128 takes the fused wgmma kernel,
-    which adds dq into a float32 accumulator from `torch.zeros_like(q)` that
-    is rounded into dq once after the kernel; other calls take K4a then K4b
-    (mma.sync for bf16 at head_dim 80, fma otherwise). Raises on input the
+    of its input. bf16 at head_dim 64, 80 and 128 takes the fused wgmma
+    kernel, which adds dq into a float32 accumulator from
+    `torch.zeros_like(q)` that is rounded into dq once after the kernel;
+    other calls take K4a then K4b on the scalar fma loop. Raises on input the
     kernels do not take and on a refused launch, with no fallback. Each call
     that launches is counted once in `launches` and, by the path the kernel
     reported (K4_PATHS), in `launches_by_path`; with no query or key rows the

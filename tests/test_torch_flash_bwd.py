@@ -41,6 +41,9 @@ CASES = [
     (True, 64, 200, 128),
     (False, 200, 64, 128),
     (True, 130, 130, 32),
+    # head_dim 80 (the ViT-H towers; the fused kernel's tail boxes on the card)
+    (True, 64, 200, 80),
+    (False, 100, 77, 80),
 ]
 
 
@@ -111,7 +114,8 @@ def test_bwd_recompute_matches_jax(causal):
         assert_close(a, b, GRAD_TOL, seed, what=name)
 
 
-@pytest.mark.parametrize("s,kv,d", [(48, (48, 31, 1), 64), (70, (5, 70, 64), 32)])
+@pytest.mark.parametrize("s,kv,d", [(48, (48, 31, 1), 64), (70, (5, 70, 64), 32),
+                                    (40, (40, 23), 80)])
 def test_kv_len_grads_match_jax_masked_path(s, kv, d):
     """A right-padding mask under the causal rule: the port's router sends
     kv_len to the differentiable flash path, the JAX router sends the mask
@@ -229,13 +233,13 @@ def _fake_fused_library(monkeypatch, code, rc=0):
 
 
 @pytest.mark.parametrize("dtype,d,code", [
-    (torch.bfloat16, 128, 2), (torch.bfloat16, 64, 2), (torch.bfloat16, 80, 1),
+    (torch.bfloat16, 128, 2), (torch.bfloat16, 64, 2), (torch.bfloat16, 80, 2),
     (torch.bfloat16, 72, 0), (torch.float32, 64, 0),
 ])
 def test_fused_bwd_counts_launches_by_path(monkeypatch, dtype, d, code):
     """One count per backward call, under the path the kernel reported; K4a's
     and K4b's own counters stay. A float32 dq accumulator is passed only where
-    the fused kernel may take the call (bf16 at head_dim 64 and 128), and on
+    the fused kernel may take the call (bf16 at head_dim 64, 80 and 128), and on
     the wgmma path dq is that accumulator rounded (zeros here: the stand-in
     adds nothing). A refused launch raises, naming its path, and counts
     nothing."""
@@ -267,18 +271,18 @@ def test_fused_bwd_counts_launches_by_path(monkeypatch, dtype, d, code):
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_fused_bwd_lays_out_outputs_like_inputs(monkeypatch, layout):
     """`flash_bwd_cuda` hands the library dq, dk and dv with q's, k's and v's
-    strides (the router's (B, S, H, D) views too), so K4a's and K4b's
+    strides (the router's (B, S, H, D) views too), so the library's
     alignment checks, which differ only in the outputs they see, agree on
-    every call the wrapper makes. Without a dq accumulator its slot repeats
-    dq's strides."""
+    every call the wrapper makes; the dq accumulator (bf16 at head_dim 80
+    here) has q's strides too."""
     seen = []
 
     def fn(*args):
         seen.append(list(ctypes.cast(args[17], ctypes.POINTER(ctypes.c_int64))[:24]))
         return 0
 
-    _fake_fused_library(monkeypatch, 1)
-    monkeypatch.setattr(fa, "_fused_bwd_lib", lambda: (fn, lambda: 1))
+    _fake_fused_library(monkeypatch, 2)
+    monkeypatch.setattr(fa, "_fused_bwd_lib", lambda: (fn, lambda: 2))
     q, k, v, g = (torch.ones(2, 3, 20, 80, dtype=torch.bfloat16) for _ in range(4))
     if layout == "bshd":
         q, k, v, g = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, g))
@@ -464,11 +468,13 @@ def test_build_copies_writes_each_patched_copy(tmp_path, monkeypatch):
 
 def test_planted_faults_patch_real_code():
     """Every planted fault of chip_smoke.py (K1's fma and wgmma loops and
-    its head_dim 80 tail boxes, K2, K3's bias policy, K4's two-kernel and
-    fused paths) names source text that occurs exactly once in the file it
-    patches, so each broken copy differs from the real kernel. At least 5
-    patch the wgmma forward's bias policy and head_dim 80 code, which took
-    the place of the mma.sync loop and its 6 faults."""
+    its head_dim 80 tail boxes, K2, K3's bias policy, K4's two-kernel fma
+    path and fused kernel, its head_dim 80 tail boxes included) names source
+    text that occurs exactly once in the file it patches, so each broken
+    copy differs from the real kernel. At least 5 patch the wgmma forward's
+    bias policy and head_dim 80 code, which took the place of the mma.sync
+    loop and its 6 faults; at least 2 the fused backward's head_dim 80 tail
+    boxes."""
     import chip_smoke
 
     sets = ((chip_smoke.FAULTS, "flash_fwd"), (chip_smoke.QMV_FAULTS, "qmv"),
@@ -486,6 +492,9 @@ def test_planted_faults_patch_real_code():
                 if f[3:] == ("flash_fwd_sm90.cuh",) and n.startswith(("d80_", "bias_"))]
     assert len(new_code) >= 6, new_code
     assert not [n for n in chip_smoke.FAULTS if n.startswith("mma_")]
+    d80_bwd = [n for n, f in chip_smoke.K4_FAULTS.items()
+               if f[3:] == ("flash_bwd_sm90.cuh",) and n.startswith("fused_d80_")]
+    assert len(d80_bwd) >= 2, d80_bwd
 
 
 def test_k1_counts_launches_by_path():
