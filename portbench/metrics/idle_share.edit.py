@@ -1,0 +1,7 @@
+"""The share of the profiled edit with no kernel running (%)."""
+
+from portbench import reduce
+
+
+def read(rec):
+    return reduce.idle_share(rec)

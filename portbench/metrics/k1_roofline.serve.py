@@ -1,0 +1,7 @@
+"""K1's least time over its device time in the profiled microbatch (%)."""
+
+from portbench import reduce
+
+
+def read(rec):
+    return reduce.roofline(rec, "k1")

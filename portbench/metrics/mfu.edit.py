@@ -1,0 +1,7 @@
+"""Model FLOPs of the window's edits over its seconds at the bf16 peak (%)."""
+
+from portbench import reduce
+
+
+def read(rec):
+    return reduce.mfu(rec)
