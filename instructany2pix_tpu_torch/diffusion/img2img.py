@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import unet as unet_lib
+from ..utils import profiling
 from .sampler import loop_denoise, make_cfg_eps_fn
 from .schedulers import Schedule
 
@@ -113,10 +114,11 @@ def inpaint(
     )
     ts = [int(t) for t in ts]
     for i, (t, t_prev) in enumerate(zip(ts, ts[1:] + [-1])):
-        eps = eps_fn(lat, t, i)
-        nxt = schedule.ddim_step(eps.float(), torch.full((b,), t), torch.full((b,), t_prev),
-                                 lat.float())
-        keep = (schedule.add_noise(src32, noise, torch.full((b,), t_prev)) if t_prev >= 0
-                else src32)
-        lat = ((1.0 - mask_lat) * keep + mask_lat * nxt).to(src_latents.dtype)
+        with profiling.span("unet_step", rows=b, loop="inpaint", step=i):
+            eps = eps_fn(lat, t, i)
+            nxt = schedule.ddim_step(eps.float(), torch.full((b,), t), torch.full((b,), t_prev),
+                                     lat.float())
+            keep = (schedule.add_noise(src32, noise, torch.full((b,), t_prev)) if t_prev >= 0
+                    else src32)
+            lat = ((1.0 - mask_lat) * keep + mask_lat * nxt).to(src_latents.dtype)
     return lat

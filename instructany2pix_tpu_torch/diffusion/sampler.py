@@ -15,6 +15,7 @@ import torch
 
 from ..models import clip as clip_lib
 from ..models import unet as unet_lib
+from ..utils import profiling
 from .schedulers import Schedule
 
 
@@ -49,16 +50,18 @@ def default_time_ids(h: int, w: int, batch: int, device="cpu") -> torch.Tensor:
 
 
 def loop_denoise(eps_fn: Callable, schedule: Schedule, latents: torch.Tensor, ts) -> torch.Tensor:
-    """x_T → x_0 DDIM loop over descending `ts`."""
+    """x_T → x_0 DDIM loop over descending `ts`. Each step is one
+    "unet_step" span while the tracer is on (host clock only)."""
     ts = [int(t) for t in ts]
     ts_prev = ts[1:] + [-1]
     b = latents.shape[0]
     lat = latents
     for i, (t, t_prev) in enumerate(zip(ts, ts_prev)):
-        eps = eps_fn(lat, t, i)
-        lat = schedule.ddim_step(
-            eps.float(), torch.full((b,), t), torch.full((b,), t_prev), lat.float()
-        ).to(latents.dtype)
+        with profiling.span("unet_step", rows=b, loop="denoise", step=i):
+            eps = eps_fn(lat, t, i)
+            lat = schedule.ddim_step(
+                eps.float(), torch.full((b,), t), torch.full((b,), t_prev), lat.float()
+            ).to(latents.dtype)
     return lat
 
 
@@ -70,10 +73,11 @@ def loop_invert(eps_fn: Callable, schedule: Schedule, latents: torch.Tensor, ts)
     b = latents.shape[0]
     lat = latents
     for i, (t, t_prev) in enumerate(zip(ts, ts_prev)):
-        eps = eps_fn(lat, t, i)
-        lat = schedule.ddim_inverse_step(
-            eps.float(), torch.full((b,), t_prev), torch.full((b,), t), lat.float()
-        ).to(latents.dtype)
+        with profiling.span("unet_step", rows=b, loop="invert", step=i):
+            eps = eps_fn(lat, t, i)
+            lat = schedule.ddim_inverse_step(
+                eps.float(), torch.full((b,), t_prev), torch.full((b,), t), lat.float()
+            ).to(latents.dtype)
     return lat
 
 
@@ -92,13 +96,14 @@ def loop_denoise_lcm(eps_fn: Callable, schedule: Schedule, latents: torch.Tensor
     b = latents.shape[0]
     lat = latents
     for i, (t, t_prev) in enumerate(zip(ts, ts_prev)):
-        eps = eps_fn(lat, t, i)
-        z = (noise[i] if noise is not None
-             else torch.randn(latents.shape, generator=generator, device=latents.device))
-        lat = lcm_step(
-            schedule, eps.float(), torch.full((b,), t), torch.full((b,), t_prev), lat.float(),
-            noise=z.to(device=latents.device, dtype=torch.float32),
-        ).to(latents.dtype)
+        with profiling.span("unet_step", rows=b, loop="lcm", step=i):
+            eps = eps_fn(lat, t, i)
+            z = (noise[i] if noise is not None
+                 else torch.randn(latents.shape, generator=generator, device=latents.device))
+            lat = lcm_step(
+                schedule, eps.float(), torch.full((b,), t), torch.full((b,), t_prev), lat.float(),
+                noise=z.to(device=latents.device, dtype=torch.float32),
+            ).to(latents.dtype)
     return lat
 
 

@@ -40,6 +40,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..utils import profiling
+
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 BWD_BLOCK_Q = 1024  # query rows per block of the plain backward
@@ -195,7 +197,8 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
     `flash_attention` is the differentiable entry point. Each launch is
     counted in `launches` and, by the path the kernel took (K1_PATHS: wgmma
     for bf16 at head_dim 64, 80 and 128, fma otherwise), in
-    `launches_by_path`."""
+    `launches_by_path`, and, while the tracer is on, in its "k1" counter by
+    (q shape, k shape, causal, dtype)."""
     _check(q, k, v)
     kv_ptr = _check_kv_len(kv_len, q)
     b, h, sq, d = q.shape
@@ -219,6 +222,8 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
                            f"error {rc}")
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.launches_by_path[path] += 1
+    if profiling.ON:
+        profiling.count("k1", (q.shape, k.shape, bool(causal), q.dtype))
     if any(t.stride(i) == 0 and t.shape[i] > 1 for t in (q, k, v) for i in range(3)):
         flash_fwd_cuda.launches_broadcast += 1
     return (o, lse) if return_lse else o
@@ -504,7 +509,8 @@ def flash_relpos2d_cuda(q, k, v, bh, bw, scale: float):
     input that requires a gradient while grad mode is on (K3 has no
     backward), and on a refused launch. Each launch is counted in
     `launches` and, by the path the library reports (K1_PATHS: wgmma, the
-    only one K3 has), in `launches_by_path`."""
+    only one K3 has), in `launches_by_path`, and, while the tracer is on, in
+    its "k3" counter by (q shape, k shape, False, dtype)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bh, bw)):
         raise RuntimeError("flash_attention_relpos2d: the CUDA kernel has no backward; call it "
                            "under torch.no_grad() or on inputs that need no gradient")
@@ -523,6 +529,8 @@ def flash_relpos2d_cuda(q, k, v, bh, bw, scale: float):
                            f"CUDA error {rc}")
     flash_relpos2d_cuda.launches += 1
     flash_relpos2d_cuda.launches_by_path[path] += 1
+    if profiling.ON:
+        profiling.count("k3", (q.shape, k.shape, False, q.dtype))
     return o
 
 

@@ -45,6 +45,7 @@ place of "SUCCESS!".
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import re
 import time
@@ -77,6 +78,7 @@ from .models import unet as unet_lib
 from .models import vae as vae_lib
 from .ops import quant as Q
 from .prior import model as prior_lib
+from .utils import profiling
 from .utils.filecache import cached
 
 MODALITY = prior_lib.MODALITY
@@ -238,6 +240,21 @@ def _random_llm(cfg: mm_lib.Any2PixLMConfig, device, dtype, gen,
     return m.eval().requires_grad_(False)
 
 
+def _request_span(fn):
+    """`fn` inside one "request" span, with the device allocator's deltas
+    over it; its stages' times are settled once it has returned its images
+    to the host."""
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        with profiling.span("request", memory=True):
+            out = fn(self, *args, **kwargs)
+        self._settle_stages()
+        return out
+
+    return call
+
+
 class InstructAny2PixPipeline:
     """Port of the JAX `InstructAny2PixPipeline`.
 
@@ -293,7 +310,7 @@ class InstructAny2PixPipeline:
         self.last_generate: Optional[gen_lib.GenerateResult] = None
         # tokens emitted by each round of the last speculative decode
         self.last_rounds: List[int] = []
-        # host seconds per stage, recorded (after a device sync) when a dict
+        # seconds per stage when `stage_times` is a dict (see `_stage`)
         self.stage_times: Optional[Dict[str, float]] = None
 
         # the LLM's tokenizer from <ckpt>/<llm_folder>/tokenizer when it is
@@ -346,18 +363,53 @@ class InstructAny2PixPipeline:
 
     # ---------------------------------------------------------- helpers
 
+    @property
+    def stage_times(self) -> Optional[Dict[str, float]]:
+        """Seconds per stage, summed, while a dict is set here; None turns
+        the timing off. On the card each stage is timed by CUDA events at
+        its edges, with no sync, and `_settle_stages` reads them once the
+        unit's images are on the host. Reading this before then waits for
+        the device to finish the stages recorded so far."""
+        self._settle_stages()
+        return self._stage_times
+
+    @stage_times.setter
+    def stage_times(self, times: Optional[Dict[str, float]]):
+        self._stage_times, self._stage_events = times, []
+
+    def _settle_stages(self):
+        """Add the seconds of the stages timed by CUDA events to
+        `stage_times`. Called where the host has already waited for the
+        unit's images (`__call__`'s return, the server's copy to the
+        host), so the last event has completed and waiting on it is free."""
+        if self._stage_events:
+            events, self._stage_events = self._stage_events, []
+            events[-1][2].synchronize()
+            for name, start, stop in events:
+                self._stage_times[name] = (self._stage_times.get(name, 0.0)
+                                           + start.elapsed_time(stop) / 1e3)
+
     @contextmanager
     def _stage(self, name: str):
-        if self.stage_times is None:
-            yield
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stage_times[name] = self.stage_times.get(name, 0.0) + time.perf_counter() - t0
+        """A stage: a span while the tracer is on, and its seconds in
+        `stage_times` while that is a dict (host clock on the CPU, CUDA
+        events on the card). Neither syncs."""
+        with profiling.span(name):
+            if self._stage_times is None:
+                yield
+            elif self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                yield
+                stop = torch.cuda.Event(enable_timing=True)
+                stop.record(stream)
+                self._stage_events.append((name, start, stop))
+            else:
+                t0 = time.perf_counter()
+                yield
+                dt = time.perf_counter() - t0
+                self._stage_times[name] = self._stage_times.get(name, 0.0) + dt
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -381,11 +433,12 @@ class InstructAny2PixPipeline:
     def _clip_ids(self, clip_tok, prompt: str, length: int, eos: Optional[int]):
         """Token ids for a CLIP text encoder: the BPE tokenizer when its
         vocab is on disk, the byte tokenizer otherwise."""
-        if clip_tok is not None:
-            ids = np.asarray([clip_tok.encode_padded(prompt, length)], np.int32)
-        else:
-            ids = _tokenize_pad(self.tokenizer, prompt, length, eos)
-        return torch.as_tensor(ids, device=self.device)
+        with profiling.span("tokenize"):
+            if clip_tok is not None:
+                ids = np.asarray([clip_tok.encode_padded(prompt, length)], np.int32)
+            else:
+                ids = _tokenize_pad(self.tokenizer, prompt, length, eos)
+            return torch.as_tensor(ids, device=self.device)
 
     def _encode_sdxl_prompt(self, prompt: str):
         c = self.cfg
@@ -450,7 +503,8 @@ class InstructAny2PixPipeline:
         conv = conv_templates["vicuna_v1"].copy()
         conv.append_message(conv.roles[0], inst)
         conv.append_message(conv.roles[1], None)
-        input_ids = np.asarray([self.tokenizer(conv.get_prompt()).input_ids], np.int64)
+        with profiling.span("tokenize"):
+            input_ids = np.asarray([self.tokenizer(conv.get_prompt()).input_ids], np.int64)
         types = torch.full((aux_info.shape[0],), REPLACEMENT_TYPE.INPUT, dtype=torch.int32)
         llm = self.models["llm"]
         embeds = mm_lib.splice_input_embeds(
@@ -574,10 +628,11 @@ class InstructAny2PixPipeline:
         return re.findall(r"([^:]+):<video>", matched[0])
 
     def load_base_img(self, base_img_path) -> np.ndarray:
-        if isinstance(base_img_path, (str, bytes)):
-            return cached(base_img_path, ("base", self.cfg.image_size),
-                          lambda: image_io.resize_and_crop(base_img_path, self.cfg.image_size))
-        return image_io.resize_and_crop(base_img_path, self.cfg.image_size)
+        with profiling.span("load_base_img"):
+            if isinstance(base_img_path, (str, bytes)):
+                return cached(base_img_path, ("base", self.cfg.image_size),
+                              lambda: image_io.resize_and_crop(base_img_path, self.cfg.image_size))
+            return image_io.resize_and_crop(base_img_path, self.cfg.image_size)
 
     # ------------------------------------------------------------ text2img
 
@@ -620,6 +675,7 @@ class InstructAny2PixPipeline:
 
     # ------------------------------------------------------------- __call__
 
+    @_request_span
     @torch.inference_mode()
     def __call__(
         self,
@@ -726,7 +782,7 @@ class InstructAny2PixPipeline:
                 )
         with self._stage("vae_decode"):
             img = vae_lib.decode(self.models["vae"], lat, c.vae)
-            non_refined = image_io.from_model_range(img[0].float().cpu().numpy())
+            non_refined = _to_host(img)
 
         refined = non_refined
         if refinement > 0:
@@ -806,7 +862,7 @@ class InstructAny2PixPipeline:
             )
         with self._stage("refiner_vae_decode"):
             rimg = vae_lib.decode(self.models["vae"], rlat, c.vae)
-            return image_io.from_model_range(rimg[0].float().cpu().numpy())
+            return _to_host(rimg)
 
     def _make_inpaint_fn(self, gen: torch.Generator, strength: float, subject_noise=None):
         """inpaint_fn(image, mask, subject_embed, prompt) → uint8 image for
@@ -848,9 +904,15 @@ class InstructAny2PixPipeline:
                 )
             with self._stage("inpaint_vae_decode"):
                 img = vae_lib.decode(self.models["vae"], out, c.vae)
-                return image_io.from_model_range(img[0].float().cpu().numpy())
+                return _to_host(img)
 
         return inpaint_fn
+
+
+def _to_host(img: torch.Tensor) -> np.ndarray:
+    """The first image of a decoded batch as (H, W, 3) uint8 on the host."""
+    with profiling.span("to_host", rows=1):
+        return image_io.from_model_range(img[0].float().cpu().numpy())
 
 
 def _resample_linear(data: np.ndarray, sr: int, target_sr: int) -> np.ndarray:

@@ -59,6 +59,7 @@ from .diffusion.schedulers import Schedule, SchedulerConfig
 from .models import unet as unet_lib
 from .parallel import collectives as C
 from .parallel import sharding as sh
+from .utils import profiling
 
 
 def _is_tp_sharded(module: torch.nn.Module) -> bool:
@@ -82,7 +83,14 @@ class EditRequest:
 
 
 class BatchScheduler:
-    """Groups compatible requests into microbatches."""
+    """Groups compatible requests into microbatches.
+
+    While the tracer (`utils/profiling.py`) is on, each request is a
+    "request" span from `submit` until its future is set (its id is the
+    span's id), and each microbatch a "batch" span from the moment the
+    worker holds its first request until its futures are set, with the
+    request ids, its rows and the device allocator's deltas; inside it a
+    "run_batch" span covers the call to `run_batch`."""
 
     def __init__(
         self,
@@ -95,7 +103,7 @@ class BatchScheduler:
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self._bucket_fn = bucket_fn
-        self._q: "queue.Queue[Tuple[Any, Future]]" = queue.Queue()
+        self._q: "queue.Queue[Tuple[Any, Future, Optional[profiling.Span]]]" = queue.Queue()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
 
@@ -109,7 +117,7 @@ class BatchScheduler:
 
     def submit(self, req) -> Future:
         fut: Future = Future()
-        self._q.put((req, fut))
+        self._q.put((req, fut, profiling.begin("request")))
         return fut
 
     def _bucket(self, req):
@@ -129,40 +137,50 @@ class BatchScheduler:
         # `pending` holds requests in arrival order; incompatible requests
         # keep their place rather than go to the tail, so traffic that
         # alternates between buckets stays first in, first out.
-        pending: "deque[Tuple[Any, Future]]" = deque()
+        pending: "deque[Tuple[Any, Future, Optional[profiling.Span]]]" = deque()
         while not self._stop.is_set():
             if not pending:
                 try:
                     pending.append(self._q.get(timeout=0.1))
                 except queue.Empty:
                     continue
-            key = self._bucket(pending[0][0])
-            deadline = time.monotonic() + self.max_wait_s
-            while sum(1 for it in pending if self._bucket(it[0]) == key) < self.max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    pending.append(self._q.get(timeout=timeout))
-                except queue.Empty:
-                    break
-            batch: List[Tuple[Any, Future]] = []
-            rest: "deque[Tuple[Any, Future]]" = deque()
-            for it in pending:
-                if len(batch) < self.max_batch and self._bucket(it[0]) == key:
-                    batch.append(it)
-                else:
-                    rest.append(it)
-            pending = rest
-            reqs = [r for r, _ in batch]
-            futs = [f for _, f in batch]
+            with profiling.span("batch", memory=True) as span:
+                pending = self._run_next(pending, span)
+
+    def _run_next(self, pending, span):
+        """Assemble the microbatch of `pending[0]`'s bucket, run it and
+        answer its futures → the requests left pending."""
+        key = self._bucket(pending[0][0])
+        deadline = time.monotonic() + self.max_wait_s
+        while sum(1 for it in pending if self._bucket(it[0]) == key) < self.max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
             try:
+                pending.append(self._q.get(timeout=timeout))
+            except queue.Empty:
+                break
+        batch, rest = [], deque()
+        for it in pending:
+            if len(batch) < self.max_batch and self._bucket(it[0]) == key:
+                batch.append(it)
+            else:
+                rest.append(it)
+        reqs = [r for r, _, _ in batch]
+        if span is not None:
+            span.rows = len(reqs)
+            span.ids = tuple(s.id for _, _, s in batch if s is not None)
+        try:
+            with profiling.span("run_batch"):
                 outs = self._run(reqs)
-                for f, o in zip(futs, outs):
-                    f.set_result(o)
-            except Exception as e:  # noqa: BLE001 — every caller of the batch gets it
-                for f in futs:
-                    f.set_exception(e)
+            for (_, f, s), o in zip(batch, outs):
+                f.set_result(o)
+                profiling.end(s)
+        except Exception as e:  # noqa: BLE001 — every caller of the batch gets it
+            for _, f, s in batch:
+                f.set_exception(e)
+                profiling.end(s)
+        return rest
 
 
 class BatchedDenoiser:
@@ -681,7 +699,9 @@ class PipelineServer:
             with pipe._stage("serve_refiner_vae_decode"):
                 dec = vae_lib.decode(pipe.models["vae"], rlat, c.vae)
 
-        out = dec.float().cpu().numpy()
-        for j, i in enumerate(live):
-            results[i] = PipelineResult(image_io.from_model_range(out[j]), captions[j])
+        with profiling.span("to_host", rows=b):
+            out = dec.float().cpu().numpy()
+            for j, i in enumerate(live):
+                results[i] = PipelineResult(image_io.from_model_range(out[j]), captions[j])
+        pipe._settle_stages()
         return results

@@ -444,19 +444,21 @@ def test_staged_boot_takes_only_the_groups_on_disk(tmp_path):
 
 
 def test_stage_collection_and_nan_check(tmp_path):
-    with profiling.collect_stages() as outer:
-        with profiling.stage("a"):
-            with profiling.collect_stages() as inner:
-                with profiling.stage("b"):
-                    torch.ones(3).sum()
-        with profiling.stage("a"):
-            pass
-    assert set(outer.times) == {"a", "b"} and set(inner.times) == {"b"}
-    assert outer.times["a"] >= outer.times["b"] >= 0.0
-    assert "ms" in repr(outer)
+    profiling.enable()
+    with profiling.stage("a"):
+        with profiling.stage("b"):
+            torch.ones(3).sum()
+    with profiling.stage("a"):
+        pass
+    spans = profiling.snapshot()["spans"]
+    assert [s["name"] for s in spans] == ["b", "a", "a"]  # in the order they closed
+    assert spans[0]["parent"] == spans[1]["id"] and "parent" not in spans[2]
+    assert spans[1]["end_ns"] - spans[1]["start_ns"] >= spans[0]["end_ns"] - spans[0]["start_ns"]
+    profiling.disable()
+    profiling.clear()
     with profiling.stage("unrecorded"):
         pass
-    assert "unrecorded" not in outer.times
+    assert profiling.snapshot()["spans"] == []
     tree = {"x": torch.ones(2), "y": [torch.zeros(1), torch.arange(3)], "m": nn.Linear(2, 2)}
     profiling.nan_check(tree, "ok")
     with pytest.raises(FloatingPointError, match="bad leaf 1"):
@@ -470,4 +472,4 @@ def test_stage_collection_and_nan_check(tmp_path):
         with profiling.stage("traced"):
             torch.ones(8).cumsum(0)
     text = (tmp_path / "trace" / "trace.json").read_text()
-    assert '"traced"' in text
+    assert '"traced"' in text and '"program_span"' in text
