@@ -2358,6 +2358,7 @@ def phase_serve(pipe, failures, finite, edit):
     import torch
 
     from instructany2pix_tpu_torch import serve, serving
+    from instructany2pix_tpu_torch.diffusion import unet_graph
     from instructany2pix_tpu_torch.models import llama as llama_lib
     from instructany2pix_tpu_torch.models import unet as unet_lib
     from instructany2pix_tpu_torch.ops import flash_attention as fa
@@ -2559,9 +2560,12 @@ def phase_serve(pipe, failures, finite, edit):
                 f"(peak {edit['call_peak_gib']:.2f} GiB); repeat identical {repeat_ok}, seeds differ "
                 f"{differ}, caption-only None {first[4].image is None}")
 
-            # ---- one ipa_lcm edit through __call__ on a seeded cache
+            # ---- one ipa_lcm edit through __call__ on a seeded cache; its UNet forwards are the
+            # Python `apply` calls and the CUDA-graph replays, which call no Python forward
             unet_calls = collections.Counter()
             apply = unet_lib.apply
+            base_graphs = unet_graph.graphs_of(pipe.models["unet"])
+            replays0 = base_graphs.replays
 
             def counting(params, *a, **kw):
                 unet_calls[id(params)] += 1
@@ -2584,7 +2588,7 @@ def phase_serve(pipe, failures, finite, edit):
             finally:
                 unet_lib.apply = apply
                 pipe.cache = None
-            base_calls = unet_calls[id(pipe.models["unet"])]
+            base_calls = unet_calls[id(pipe.models["unet"])] + base_graphs.replays - replays0
             k1 = fa.flash_fwd_cuda.launches
             lcm_k1 = EDIT_STEPS * 2 * blocks("unet") + 4 * 3 * blocks("unet")
             lcm_finite = finite[n_decoded:]

@@ -13,7 +13,8 @@ A module reference held outside the store across an eviction sees host
 tensors, so callers resolve groups through the store where they use them
 (the server's `params_provider`).
 
-Eviction waits for the device before it frees anything; restaging
+Eviction waits for the device before it frees anything, and drops the
+CUDA graphs of any UNet in the group with their memory pool; restaging
 synchronizes before `swap_s` is read, so it is the copy's whole time. A
 re-entrant lock serializes the store between the server's worker thread
 and the caller.
@@ -241,6 +242,9 @@ class StagedParams(Mapping):
             if name not in self._host:
                 self._host[name] = (module, _moved(list(_slots(module)), lambda t: t.to("cpu")))
             _install(self._host[name][1])
+        from ..diffusion import unet_graph
+
+        unet_graph.release(module)  # CUDA graphs captured over the device tensors
         self.stats["evict_s"] += time.perf_counter() - t0
         self.stats["evictions"].append(name)
 

@@ -16,6 +16,7 @@ import torch
 from ..models import clip as clip_lib
 from ..models import unet as unet_lib
 from ..utils import profiling
+from . import unet_graph
 from .schedulers import Schedule
 
 
@@ -129,7 +130,8 @@ def make_cfg_eps_fn(
     """eps_fn wrapping the UNet with classifier-free guidance (uncond
     first, diffusers order), optional IP tokens with a step window and an
     optional per-step channel concat. Cross-attention K/V are projected
-    once here for the whole loop."""
+    once here for the whole loop. On the card the UNet forward replays
+    piecewise CUDA graphs (`unet_graph.Loop`); the CFG combine stays eager."""
     do_cfg = guidance_scale > 1.0
     mult = 2 if do_cfg else 1
 
@@ -149,19 +151,25 @@ def make_cfg_eps_fn(
     extra2 = extra_channels.repeat(mult, 1, 1, 1) if extra_channels is not None else None
     cross_kv = unet_lib.precompute_cross_kv(unet_params, unet_cfg, ctx2, ip2)
 
-    def eps_fn(lat, t, i):
+    def unet_eps(lat, t, scale, ctx, pooled, tid, ip, extra):
         lat_in = lat.repeat(mult, 1, 1, 1)
-        if extra2 is not None:
-            lat_in = torch.cat([lat_in, extra2.to(lat_in.dtype)], dim=-1)
+        if extra is not None:
+            lat_in = torch.cat([lat_in, extra.to(lat_in.dtype)], dim=-1)
+        return unet_lib.apply(
+            unet_params, lat_in, t, ctx, unet_cfg, pooled_text=pooled, time_ids=tid,
+            ip_tokens=ip, ip_scale=scale, cross_kv=cross_kv,
+        )
+
+    forward = unet_graph.Loop(
+        unet_params, unet_cfg, unet_eps, cross_kv, (ctx2, pooled2, tid2, ip2, extra2), mult,
+        (ip_scale, 0.0) if ip_step_window is not None else (ip_scale,))
+
+    def eps_fn(lat, t, i):
         scale_i = ip_scale
         if ip_step_window is not None:
             lo, hi = ip_step_window
             scale_i = ip_scale if lo <= i < hi else 0.0
-        eps = unet_lib.apply(
-            unet_params, lat_in, torch.full((lat_in.shape[0],), t), ctx2, unet_cfg,
-            pooled_text=pooled2, time_ids=tid2, ip_tokens=ip2, ip_scale=scale_i,
-            cross_kv=cross_kv,
-        )
+        eps = forward(lat, t, scale_i)
         if do_cfg:
             eps_u, eps_c = eps.chunk(2, dim=0)
             eps = eps_u + guidance_scale * (eps_c - eps_u)

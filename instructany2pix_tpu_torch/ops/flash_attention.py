@@ -35,7 +35,10 @@ TMA maps included; outputs are dense, in their input's stride order.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
+import functools
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -190,9 +193,37 @@ def _lib():
     return fn, path
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False, kv_len=None):
-    """Launch K1 on PyTorch's current stream. Outputs come from
-    `torch.empty`; the kernel allocates nothing. Raises on input the kernel
+@functools.lru_cache(maxsize=256)
+def _dense_in_order(shape, q_stride, out_stride) -> bool:
+    """Whether `out_stride` lays `shape` out densely, its dims of size > 1
+    in the order of `q_stride` (what `torch.empty_like(q)` gives a dense q)."""
+    def order(stride):
+        return sorted((i for i in range(len(shape)) if shape[i] > 1), key=lambda i: -stride[i])
+
+    dims = order(out_stride)
+    sizes = [shape[i] for i in dims]
+    return (dims == order(q_stride)
+            and [out_stride[i] for i in dims] == [math.prod(sizes[j + 1:]) for j in range(len(dims))])
+
+
+def _check_out(out, q):
+    """`out` for K1's output: q's shape, dtype and device, dense, its dims in
+    q's stride order; the layout's verdict is kept, so a buffer passed at
+    every call (the UNet graphs') costs a lookup."""
+    if (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+            or not _dense_in_order(q.shape, q.stride(), out.stride())):
+        raise ValueError(f"flash_attention: out {out.dtype} {tuple(out.shape)} strides "
+                         f"{out.stride()} on {out.device} for q {q.dtype} {tuple(q.shape)} strides "
+                         f"{q.stride()} on {q.device}: it must be dense, in q's stride order")
+    return out
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False, kv_len=None,
+                   out=None):
+    """Launch K1 on PyTorch's current stream. The output is `out` when given
+    (checked by `_check_out`; the piecewise UNet graphs pass the buffer the
+    next graph reads), else from `torch.empty`, as the logsumexp is; the
+    kernel allocates nothing. Raises on input the kernel
     does not take and on a refused launch. The output carries no gradient:
     `flash_attention` is the differentiable entry point. Each launch is
     counted in `launches` and, by the path the kernel took (K1_PATHS: wgmma
@@ -203,7 +234,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, return_lse: bool = False
     kv_ptr = _check_kv_len(kv_len, q)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    o = torch.empty_like(q)
+    o = torch.empty_like(q) if out is None else _check_out(out, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if sq == 0 or b * h == 0:
         return (o, lse) if return_lse else o
@@ -416,6 +447,13 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+# Set while a piecewise CUDA graph of a forward is captured
+# (`diffusion/unet_graph.py`): the no-grad K1 call goes to this callable,
+# with flash_attention's arguments, which ends the graph there and returns
+# the buffer K1 will write at each replay.
+K1_SPLIT: contextvars.ContextVar = contextvars.ContextVar("ia2p_k1_split", default=None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -433,6 +471,9 @@ def flash_attention(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         o, lse = _FlashAttention.apply(q, k, v, kv_len, causal, scale)
         return (o, lse) if return_lse else o
+    split = K1_SPLIT.get()
+    if split is not None:
+        return split(q, k, v, causal, scale, return_lse, kv_len)
     if q.device.type == "cpu":
         return _reference_attention(q, k, v, causal, scale, return_lse, kv_len)
     return flash_fwd_cuda(q, k, v, causal, scale, return_lse, kv_len)

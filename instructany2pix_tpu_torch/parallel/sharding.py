@@ -328,6 +328,11 @@ def tp_activation_constraints(mesh: Mesh):
         _ACT_MESH.reset(token)
 
 
+def active_tp_mesh() -> Optional[Mesh]:
+    """The mesh of the enclosing `tp_activation_constraints`, else None."""
+    return _ACT_MESH.get()
+
+
 def tp_mesh() -> Mesh:
     mesh = _ACT_MESH.get()
     if mesh is None:
