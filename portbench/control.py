@@ -4,7 +4,8 @@ below the configuration's bfloat16), on a cell's own requests at its own
 sizes, and judged as a run judges the program: its trail followed by the
 float32 reference and each number held against the cell's limit
 (`correct.judge`). Its readings set the upper end of each limit
-(PERF.md); the benchmark's own runs never run it.
+(PERF.md); the benchmark's own runs never run it. It is the edit's
+control (`kinds/edit.py`); another kind brings its own.
 
     python3 -m portbench.control --workload <cell> --seeds 11,12,13
 """
@@ -21,6 +22,7 @@ from typing import Dict, List
 import torch
 
 from . import configs, correct
+from .kinds import edit as edit_kind
 from .reference import edit as ref_edit
 from .reference import layers as ref_layers
 from .traffic import Traffic
@@ -43,14 +45,14 @@ def readings(root: str, cell: str, seed: int, device, n: int) -> Dict[str, float
     with tempfile.TemporaryDirectory() as tmp:
         traffic = Traffic(wl, seed, cfgs["prior"].imagebind_dim, cfgs["image_size"],
                           configs.latent_side(cfgs), tmp)
-        models = correct.reference_models(cfgs, seed, device)
+        models = edit_kind.reference_models(cfgs, seed, device)
         chosen = []
         for i in range(n):
             req = traffic.request(i)
             with ref_layers.precision("fp8"):
-                trail = ref_edit.edit(models, correct.inputs(req, wl, cfgs["image_size"]), device)
+                trail = ref_edit.edit(models, edit_kind.inputs(req, wl, cfgs["image_size"]), device)
             chosen.append((req, trail))
-        worst = correct.readings(chosen, models, wl, cfgs["image_size"], device)
+        worst = edit_kind.worst_of(chosen, models, wl, cfgs["image_size"], device)
         del models, chosen
         correct.free_cuda()
     return worst

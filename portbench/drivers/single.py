@@ -1,13 +1,13 @@
-"""One user sending one request at a time through
-`InstructAny2PixPipeline.__call__(..., use_cache=True)`, with `pipe.cache`
-set to the request's given LLM answer.
+"""One user sending one request at a time through the configuration
+kind's `single_call` (for the edit, `InstructAny2PixPipeline.__call__(...,
+use_cache=True)`, with `pipe.cache` set to the request's given LLM answer).
 
 The window starts with the first timed request and ends when the request
 in flight at `--seconds` returns its image; `request_latency_s` is the sum
 of the requests' times, from the call to the image on the host, over
-their number. A traced run profiles the window's second edit and records
-each edit's stage seconds. Every run keeps each edit's DDIM steps for the
-comparison.
+their number. A traced run profiles the window's second request and
+records each request's stage seconds. Every run keeps each request's DDIM
+steps for the comparison, with the answer `single_call` returns.
 """
 
 from __future__ import annotations
@@ -16,19 +16,15 @@ import contextlib
 import time
 import traceback
 
-from portbench import port
 from portbench.flops import refiner_steps
 
 WARMUP_INDEX = 1_000_000  # warm-up requests are drawn past the measured ones
 
 
-def _edit(run, req, steps, refinement):
-    return port.single_edit(run.pipe, req, steps, run.wl["cfg"], refinement, run.wl["scale"])
-
-
 def setup(run):
     wl = run.wl
-    _edit(run, run.request(WARMUP_INDEX), wl["warmup_steps"], wl["warmup_steps"] / 50)
+    run.kind.single_call(run, run.request(WARMUP_INDEX), wl["warmup_steps"],
+                         wl["warmup_steps"] / 50)
     run.sync()
     run.prefill(wl["prefill"])
 
@@ -48,9 +44,8 @@ def window(run):
         t0 = time.perf_counter()
         try:
             with ctx:
-                non_refined, refined = _edit(run, req, wl["steps"], wl["refinement"])
-            answered.append((req, {"non_refined": non_refined, "refined": refined,
-                                   "steps": run.steps.unit, "row": 0}))
+                answer = run.kind.single_call(run, req, wl["steps"], wl["refinement"])
+            answered.append((req, dict(answer, steps=run.steps.unit, row=0)))
             ok = True
         except Exception:  # noqa: BLE001 — a failed request is counted, and shown
             traceback.print_exc()

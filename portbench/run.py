@@ -2,9 +2,10 @@
 
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout. Set-up draws the weights on the card from the
-seed, builds the program's pipeline from them, and warms up the cell's
-shapes; the cell's driver then measures for `--seconds`. With `--trace 0`
+from the root of a checkout. The configuration's kind
+(`portbench/kinds/<kind>.py`, "edit" where its file names none) draws the
+weights on the card from the seed and builds the program from them; the
+cell's driver warms up the cell's shapes, then measures for `--seconds`. With `--trace 0`
 the result carries the cell's end-to-end metrics, with `--trace 1` its
 per-layer metrics, read by `portbench/metrics/<name>.py` from the traced
 run's records. After the window the reference checks a sample of the
@@ -24,14 +25,14 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import MappingProxyType
 from typing import Dict, Optional
 
 _T0 = time.perf_counter()
 
 import torch  # noqa: E402
 
-from . import configs, correct, flops, port, trace, weights  # noqa: E402
-from .traffic import Traffic  # noqa: E402
+from . import configs, correct, flops, port, trace  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "instructany2pix_tpu")
 
@@ -56,7 +57,7 @@ def forbidden_modules():
 
 
 def load_plugin(path: str, name: str):
-    """A driver or metric module from its file."""
+    """A kind, driver or metric module from its file."""
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(path)
@@ -84,8 +85,12 @@ class Run:
         self.cell = matches[0]
         with open(os.path.join(root, "portbench", "workloads", f"{cell}.json")) as f:
             self.wl = json.load(f)
+        self.limits = MappingProxyType(dict(self.wl["limits"]))  # before any kind's code runs
         self.cfg_json = configs.load(self.wl["config"], os.path.join(root, "portbench", "configs"))
-        self.cfgs = configs.reference_cfgs(self.cfg_json)
+        kind = self.cfg_json.get("kind", "edit")
+        self.kind = load_plugin(os.path.join(root, "portbench", "kinds", f"{kind}.py"),
+                                f"portbench_kind_{kind}")
+        self.cfgs = self.kind.cfgs(self.cfg_json)
         self.driver = load_plugin(os.path.join(root, "portbench", "drivers", f"{self.wl['driver']}.py"),
                                   f"portbench_driver_{self.wl['driver']}")
         self.pipe = None
@@ -96,9 +101,7 @@ class Run:
         self._requests: Dict[int, object] = {}
         self._lock = threading.Lock()
         self.late_draws = 0  # requests first drawn inside the window
-        self.traffic = Traffic(self.wl, self.seed, self.cfgs["prior"].imagebind_dim,
-                               self.cfgs["image_size"], configs.latent_side(self.cfgs),
-                               os.path.join(tmpdir, "images"))
+        self.traffic = self.kind.traffic(self)
 
     def request(self, i: int):
         with self._lock:
@@ -133,14 +136,6 @@ class Run:
         with trace.Profiled(self.tmpdir):
             torch.ones(8, device=self.device).sum()
 
-    def build(self):
-        published = weights.draw_all(weights.MODULE_ORDER, self.cfgs, self.seed, self.device,
-                                     self.cfgs["dtype"])
-        self.pipe = port.build_pipeline(self.cfg_json, published, self.device,
-                                        os.path.join(self.tmpdir, "no-checkpoints"))
-        del published
-        correct.free_cuda()
-
     def free_program(self):
         for name in ("server", "recorder", "steps"):
             if hasattr(self, name):
@@ -152,12 +147,11 @@ class Run:
         """What the per-layer metrics read."""
         self.profile = self.profiled.summary() if self.profiled is not None else None
         units = outcome["units"]
-        unit_flops = [sum(flops.edit(self.cfgs, u["rows"], self.wl["steps"],
-                                     self.wl["refinement"]).values()) for u in units]
+        unit_flops = [self.kind.unit_flops(self, u) for u in units]
         bounds: Dict[str, float] = {}
-        for kind, q, k, causal, dtype in self.kernel_calls:
-            bounds[kind] = bounds.get(kind, 0.0) + (
-                flops.k1_bound_s(q, k, causal, dtype) if kind == "k1" else flops.k3_bound_s(q))
+        for kernel, q, k, causal, dtype in self.kernel_calls:
+            bounds[kernel] = bounds.get(kernel, 0.0) + (
+                flops.k1_bound_s(q, k, causal, dtype) if kernel == "k1" else flops.k3_bound_s(q))
         return {"driver": self.wl["driver"], "window_s": outcome["window_s"], "units": units,
                 "unit_flops": unit_flops, "unet_stages": outcome["unet_stages"],
                 "profile": self.profile, "kernel_bounds_s": bounds,
@@ -168,7 +162,7 @@ def run_cell(root: str, cell: str, seed: int, seconds: float, trace_on: bool, de
              tmpdir: str) -> Dict:
     """One run of `cell` → the result object (without the chip check)."""
     run = Run(root, cell, seed, seconds, trace_on, device, tmpdir)
-    run.build()
+    run.kind.build(run)
     with port.StepLog() as run.steps:
         run.driver.setup(run)
         outcome = run.driver.window(run)

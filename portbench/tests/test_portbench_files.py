@@ -3,11 +3,10 @@ and new entries of BENCHMARK.json alone: the harness finds them by name."""
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 
-from tinybench import REPO, run_tiny
+from tinybench import REPO, digests, run_tiny
 
 NEW_METRIC = '''"""Microbatches in the traced window (a test metric)."""
 
@@ -15,18 +14,6 @@ NEW_METRIC = '''"""Microbatches in the traced window (a test metric)."""
 def read(rec):
     return len(rec["units"]) or None
 '''
-
-
-def _digests(root):
-    out = {}
-    for base, _, files in os.walk(os.path.join(root, "portbench")):
-        if "__pycache__" in base:
-            continue
-        for f in files:
-            path = os.path.join(base, f)
-            with open(path, "rb") as fh:
-                out[os.path.relpath(path, root)] = hashlib.sha256(fh.read()).hexdigest()
-    return out
 
 
 def test_new_cell_configuration_and_metric_come_from_new_files(tiny_root):
@@ -47,7 +34,7 @@ def test_new_cell_configuration_and_metric_come_from_new_files(tiny_root):
     assert {"between_batches_ms.serve", "unet_step_ms.serve", "mfu.serve"} <= set(result["metrics"])
 
     # every file the benchmark had is unchanged; its manifest only gained entries
-    original, copy = _digests(REPO), _digests(tiny_root)
+    original, copy = digests(REPO), digests(tiny_root)
     assert all(copy[p] == d for p, d in original.items())
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         old = json.load(f)

@@ -7,7 +7,8 @@ import pytest
 import torch
 from tinybench import TINY, run_tiny
 
-from portbench import configs, correct, port, weights
+from portbench import configs, port, weights
+from portbench.kinds import edit as edit_kind
 from portbench.reference import clip, prior, unet, vae
 
 SEED = 2**31 + 11
@@ -19,7 +20,7 @@ def both(tmp_path_factory):
     cfgs = configs.reference_cfgs(TINY)
     published = weights.draw_all(weights.MODULE_ORDER, cfgs, SEED, "cpu", cfgs["dtype"])
     pipe = port.build_pipeline(TINY, published, "cpu", str(tmp_path_factory.mktemp("none")))
-    return pipe, correct.reference_models(cfgs, SEED, "cpu"), cfgs
+    return pipe, edit_kind.reference_models(cfgs, SEED, "cpu"), cfgs
 
 
 def _close(a, b):

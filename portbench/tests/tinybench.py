@@ -4,6 +4,7 @@ CPU."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -87,6 +88,18 @@ def add_tiny_cells(root: str) -> None:
     with open(path, "w") as f:
         json.dump(bench, f)
 
+
+def digests(root: str) -> dict:
+    """Path under `root` → sha256 of every file of `root`'s portbench/."""
+    out = {}
+    for base, _, files in os.walk(os.path.join(root, "portbench")):
+        if "__pycache__" in base:
+            continue
+        for f in files:
+            path = os.path.join(base, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = hashlib.sha256(fh.read()).hexdigest()
+    return out
 
 
 def copy_with_tiny_cells(dest: str) -> str:
